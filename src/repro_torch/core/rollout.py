@@ -1,0 +1,146 @@
+"""Batched rollout engine (port of `repro/core/rollout.py`, the fused
+engine of Algorithm 1's loop).
+
+Each decision does three things for all B envs at once: the policy acts on
+the observation, one fused env-step op (`kernels/env_step`, one kernel
+launch on the card) advances the envs and returns the next queue and
+observation, and finished envs are frozen with `where(done, old, new)`.
+
+Policy protocol
+---------------
+    policy(params, generator, traces, state, obs) -> (action (B, A), extras)
+
+`action` is in env space [0, 1]; `extras` is a dict of per-step tensors
+that comes back stacked in `Transitions.extras`. A policy that draws takes
+its numbers from the rollout's `torch.Generator`; `sequence_policy` replays
+draws or actions the caller supplies instead.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, NamedTuple, Optional
+
+import torch
+
+from repro_torch.common.device import resolve_device, to_device
+from repro_torch.core import env as EV
+from repro_torch.kernels.env_step import ops as EK
+
+Policy = Callable[..., Any]
+
+class Transitions(NamedTuple):
+    """Stacked per-step records, (B, T, ...)."""
+    obs: torch.Tensor        # (B, T, 3, E+l) observation before the action
+    action: torch.Tensor     # (B, T, A) env-space action in [0, 1]
+    reward: torch.Tensor     # (B, T) f32, 0 after episode end
+    next_obs: torch.Tensor   # (B, T, 3, E+l)
+    done: torch.Tensor       # (B, T) f32 done flag after this step
+    valid: torch.Tensor      # (B, T) bool, step executed before episode end
+    extras: Dict[str, torch.Tensor]
+
+
+class RolloutResult(NamedTuple):
+    metrics: Dict[str, torch.Tensor]   # episode_metrics + return + length
+    final_state: EV.EnvState
+    transitions: Optional[Transitions]
+
+
+def _freeze(done, new, old):
+    """where(done, old, new) for every field, done (B,) broadcast."""
+    return type(new)(*(torch.where(done.reshape(done.shape + (1,) * (n.ndim - 1)),
+                                   o, n) for n, o in zip(new, old)))
+
+
+def batch_rollout(ecfg: EV.EnvConfig, traces: Dict, policy: Policy, params,
+                  *, generator: Optional[torch.Generator] = None,
+                  num_steps: Optional[int] = None, collect: bool = False,
+                  init_state: Optional[EV.EnvState] = None, device=None,
+                  impl: str = "auto") -> RolloutResult:
+    """B episodes stepped together.
+
+    `traces`: dict of (B, K) tensors (`workload.make_trace_batch`);
+    `params` is shared by every env; `init_state`, when given, carries the
+    (B,) axis and each env resumes from it. Traces, params and state are
+    moved to `device` (None: the CUDA device; raises without one). `impl`
+    picks the env step: "auto" (the kernel on the card, the plain version
+    on the CPU) or "ref" (the plain version anywhere).
+
+    The loop runs `num_steps` (default `max_steps`) decisions; an env that
+    is done stays frozen, as in the reference."""
+    dev = resolve_device(device)
+    traces = to_device(traces, dev)
+    params = to_device(params, dev)
+    B = traces["arr_time"].shape[0]
+    T = int(num_steps) if num_steps else ecfg.max_steps
+    gen = torch.Generator(device=dev) if generator is None else generator
+    state = (EV.reset(ecfg, B, device=dev) if init_state is None
+             else to_device(init_state, dev))
+    statics = EV.decision_statics(ecfg, traces)
+    q, obs = EV.reset_view(ecfg, traces, state)
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    total = torch.zeros((B,), dtype=torch.float32, device=dev)
+    length = torch.zeros((B,), dtype=torch.int32, device=dev)
+    steps = []
+    for _ in range(T):
+        action, extras = policy(params, gen, traces, state, obs)
+        nstate, nq, nobs, r, d = EK.env_step_fused(ecfg, statics, state,
+                                                   action, q, impl=impl)
+        nstate = _freeze(done, nstate, state)
+        nq = _freeze(done, nq, q)
+        nobs = torch.where(done[:, None, None], obs, nobs)
+        r = torch.where(done, 0.0, r)
+        valid = ~done
+        if collect:
+            steps.append(Transitions(obs=obs, action=action, reward=r,
+                                     next_obs=nobs, done=d.to(torch.float32),
+                                     valid=valid, extras=extras))
+        state, q, obs = nstate, nq, nobs
+        done = done | d
+        total = total + r
+        length = length + valid.to(torch.int32)
+    metrics = dict(EV.episode_metrics(ecfg, traces, state))
+    metrics["episode_return"] = total
+    metrics["episode_len"] = length
+    traj = None
+    if collect:
+        traj = Transitions(
+            *(torch.stack([getattr(s, f) for s in steps], dim=1)
+              for f in Transitions._fields[:-1]),
+            extras={k: torch.stack([s.extras[k] for s in steps], dim=1)
+                    for k in steps[0].extras})
+    return RolloutResult(metrics=metrics, final_state=state, transitions=traj)
+
+
+# ----------------------------------------------------------------------
+# policy factories
+def uniform_policy(ecfg: EV.EnvConfig) -> Policy:
+    """Random baseline: uniform env-space action (paper §VI.A.3 Random).
+    To replay given uniform draws, use `sequence_policy`."""
+    def policy(params, generator, traces, state, obs):
+        B = obs.shape[0]
+        return torch.rand((B, ecfg.action_dim), generator=generator,
+                          device=obs.device), {}
+    return policy
+
+
+def sequence_policy(ecfg: EV.EnvConfig) -> Policy:
+    """Replay a given action sequence by decision index: env b at decision
+    i plays `params["seq"][b, i]` ((B, T, A) in env space; clamped at the
+    end). This is how a schedule optimised offline, or a teacher's
+    collected actions, run through the rollout."""
+    def policy(params, generator, traces, state, obs):
+        seq = params["seq"]
+        idx = torch.clamp(state.steps_taken.to(torch.int64), max=seq.shape[1] - 1)
+        return seq[torch.arange(seq.shape[0], device=seq.device), idx], {}
+    return policy
+
+
+def fifo_policy(ecfg: EV.EnvConfig, steps_frac: float = 0.5) -> Policy:
+    """FIFO baseline: always try the earliest-arrived visible task (queue
+    slot 0) at a fixed inference-step fraction; when its gang does not fit,
+    the env no-ops and time advances (head-of-line blocking)."""
+    def policy(params, generator, traces, state, obs):
+        a = torch.zeros((obs.shape[0], ecfg.action_dim), device=obs.device)
+        a[:, 1] = steps_frac
+        a[:, 2] = 1.0                       # a_c = 0 (execute), slot 0
+        return a, {}
+    return policy

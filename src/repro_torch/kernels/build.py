@@ -1,0 +1,81 @@
+"""Build the CUDA sources under `csrc/` with nvcc and load them with ctypes.
+
+Each kernel is one `.cu` file with a plain C entry point (no PyTorch
+headers, so a build takes seconds). It is compiled on first use for
+`sm_90a` into `build/` at the root of the checkout, under a name that
+carries a hash of its source and flags, so an edited source is rebuilt and
+a stale library is never loaded. `build` starts one nvcc per source, all at
+once.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: per-kernel flags; env_step's clock must round like the reference, so
+#: nvcc may not contract a multiply and an add into one FMA there
+EXTRA_FLAGS = {"env_step": ("-fmad=false",), "denoiser_chain": ()}
+
+
+def nvcc_path() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def _flags(name: str):
+    return BASE_FLAGS + EXTRA_FLAGS[name]
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha1(src + " ".join(_flags(name)).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"{name}-{tag}.so"
+
+
+def build(names: Iterable[str]) -> Dict[str, dict]:
+    """Compile the named kernels that are not built yet, in parallel.
+
+    Returns {name: {"seconds": wall time, "log": nvcc output}}; raises with
+    nvcc's output when a compile fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *_flags(name), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    report = {}
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        os.replace(tmp, out)
+        report[name] = {"seconds": time.perf_counter() - t0, "log": log}
+    return report
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The library of one kernel, built first if needed. Each wrapper
+    loads its library once and keeps it."""
+    build([name])
+    return ctypes.CDLL(str(library_path(name)))

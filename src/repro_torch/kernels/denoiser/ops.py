@@ -1,0 +1,51 @@
+"""Entry point of the whole-chain denoiser on the params dict.
+
+`impl="auto"` dispatches by the tensors' device: the CUDA kernel for CUDA
+tensors (it launches or raises; there is no fallback), the plain PyTorch
+version for CPU tensors. `impl="ref"` takes the plain version on any device.
+The params dict is validated first: the kernel hard-codes the paper's
+3-layer Mish MLP (Table VII).
+"""
+from __future__ import annotations
+
+from repro_torch.kernels.denoiser.kernel import denoiser_chain
+from repro_torch.kernels.denoiser.ref import denoiser_chain_ref
+
+
+def _flat_weights(denoiser_params):
+    """Validate the 3-layer MLP shape and flatten to (w1, b1, ..., b3)."""
+    layers = denoiser_params.get("layers") \
+        if hasattr(denoiser_params, "get") else None
+    if layers is None:
+        raise ValueError(
+            "denoiser params must be the core.networks.init_mlp dict "
+            "{'layers': [{'w','b'}, ...]}; got "
+            f"{type(denoiser_params).__name__}")
+    if len(layers) != 3:
+        raise ValueError(
+            f"fused denoiser kernels support exactly 3 MLP layers "
+            f"(in -> hidden -> hidden -> out, paper Table VII); got "
+            f"{len(layers)} layers — use repro_torch.core.diffusion."
+            "denoise_eps for other depths")
+    return (layers[0]["w"], layers[0]["b"], layers[1]["w"], layers[1]["b"],
+            layers[2]["w"], layers[2]["b"])
+
+
+def denoise_chain(denoiser_params, x, noises, f_s, tembs, coef_x, coef_e,
+                  coef_n, *, impl: str = "auto"):
+    """Whole K-step reverse chain on the params dict.
+
+    x: (..., A); noises: (K, ..., A); f_s: (..., F); tembs: (K, t_dim);
+    coef_*: (K,). Returns tanh(x_0) with x's shape. The kernel takes a 2-D
+    batch (1-D inputs are expanded and squeezed back)."""
+    w = _flat_weights(denoiser_params)
+    if impl == "ref":
+        return denoiser_chain_ref(x, noises, f_s, tembs, coef_x, coef_e,
+                                  coef_n, *w)
+    if impl != "auto":
+        raise ValueError(f"impl must be auto|ref, got {impl!r}")
+    squeeze = x.ndim == 1
+    if squeeze:
+        x, noises, f_s = x[None], noises[:, None], f_s[None]
+    out = denoiser_chain(x, noises, f_s, tembs, coef_x, coef_e, coef_n, *w)
+    return out[0] if squeeze else out

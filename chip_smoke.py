@@ -3,7 +3,8 @@
 
 Run from the root of a checkout on a machine with an H100 and the CUDA
 toolkit: `python3 chip_smoke.py`. It builds the hand-written kernels from
-`src/repro_torch/csrc` into `build/` and runs, one line per phase:
+`src/repro_torch/csrc` into `build/` (one nvcc per source, in parallel) and
+runs, one line per result:
 
 1. the card's name and power limit, and the kernels' build time;
 2. the env_step kernel against its plain PyTorch version on random states
@@ -14,13 +15,27 @@ toolkit: `python3 chip_smoke.py`. It builds the hand-written kernels from
 4. the main path: `batch_rollout` of the EAT actor (random weights from a
    seed, the AgentConfig defaults) with samplers "ddpm" and "ddim:5" on the
    cells paper-8srv and paper-12srv (K = 32 tasks, B = 256 envs, a whole
-   episode), with both kernels' launch counts, reset just before each run,
+   episode), with the kernels' launch counts, reset just before each run,
    and a short profiled rollout: device busy time and idle share;
 5. kernel path against plain path inside the loop: fifo closed loop,
    EAT teacher-forced, EAT closed loop on aggregate metrics;
-6. a `kernels` JSON line: each kernel's main-path launches, error, time,
-   plain-version time and bound, after the card's `nvidia-smi` line;
-7. `{"ok": true, "device": {...}}` as the last line.
+6. a timing row per kernel: device and call time, plain-version time and
+   bound, at the main path's shapes;
+7. the denoiser_step kernel against its plain version (A = 10, H = 256,
+   F in {16, 20}, B in {256, 300, 4096}, and a 1-D input);
+8. SAC training at full width on paper-8srv (`core.sac.train`: a uniform
+   warmup round, then an actor round, 16 envs each) with the launch counts,
+   ms per update_step and per collection decision, and one update_step on
+   the card against the CPU from the same state, batch and draws;
+9. consistency distillation of phase 8's actor (`DistillConfig()`
+   defaults): the loss halves and the student tracks the teacher's DDIM
+   endpoint on unseen draws;
+10. the distilled main path: `batch_rollout` with sampler "distilled" at
+   B = 256 on paper-8srv (phase 9's student) and paper-12srv (a random
+   teacher and student), one denoiser_step launch per decision and no
+   chain launch, kernel path against plain path;
+then a `kernels` JSON line after the card's `nvidia-smi` line, and
+`{"ok": true, "device": {...}}` as the last line.
 
 A failing phase raises and the script exits non-zero; nothing is caught.
 Without CUDA it exits non-zero before printing any result.
@@ -43,7 +58,10 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 CHAIN_ATOL = 1e-4     # ~10x the fp32-vs-fp64 gap of the plain chain
+STEP_ATOL = 1e-5      # one MLP pass: fp32 sums in another order, a tanh
 ENV_ATOL = 1e-5       # quality / obs / reward (exp and a reordered sum)
+LOSS_RTOL = 1e-4      # one SAC update, card against CPU
+KERNELS = ("env_step", "denoiser_chain", "denoiser_step")
 CELLS = (("paper-8srv", 8, 0.1), ("paper-12srv", 12, 0.15))
 
 
@@ -150,6 +168,28 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def _wrappers():
+    from repro_torch.kernels.denoiser import kernel as DK
+    from repro_torch.kernels.env_step import kernel as EK
+    return {"env_step": EK.env_step, "denoiser_chain": DK.denoiser_chain,
+            "denoiser_step": DK.denoiser_step}
+
+
+def reset_counts():
+    """Every kernel's launch count to 0, just before a main-path run."""
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
 # ----------------------------------------------------------------- phases
 def phase_env_step(dev, B=256, K=32, l=8, Es=(8, 12), models=(1, 3),
                    decisions=3):
@@ -246,28 +286,36 @@ def phase_chain(dev, B=256, A=10, Fs=(16, 20), H=256, T=10):
     return worst, timing
 
 
-def cell_setup(dev, name, E, rate, B, seed=0):
+def cell_env(E):
+    """The paper's cell on E servers: K = 32 tasks, l = 8 queue slots."""
     from repro_torch.core import env as EV
+    return EV.EnvConfig(num_servers=E, queue_window=8, max_tasks=32)
+
+
+def cell_traces(dev, E, rate):
+    """`trace_fn(generator, B)`: B fresh traces of the cell on `dev`."""
     from repro_torch.core.workload import TraceConfig, make_trace_batch
-    ecfg = EV.EnvConfig(num_servers=E, queue_window=8, max_tasks=32)
     tc = TraceConfig(num_tasks=32, arrival_rate=rate, max_servers=E)
-    traces = make_trace_batch(
-        tc, B, generator=torch.Generator(device=dev).manual_seed(seed),
-        device=dev)
-    return ecfg, traces
+    return lambda gen, batch: make_trace_batch(tc, batch, generator=gen,
+                                               device=dev)
+
+
+def cell_setup(dev, name, E, rate, B, seed=0):
+    traces = cell_traces(dev, E, rate)(
+        torch.Generator(device=dev).manual_seed(seed), B)
+    return cell_env(E), traces
 
 
 def phase_main(dev, card, B=256, cells=CELLS, samplers=("ddpm", "ddim:5"),
                acfg=None):
-    """The main path, each run with both launch counts set to 0 just before
-    it; returns {kernel: launches summed over the runs}."""
+    """The main path, each run with every launch count set to 0 just before
+    it; returns ({kernel: launches summed over the runs}, {(cell, sampler):
+    ms per decision})."""
     from repro_torch.actors.policies import actor_policy
     from repro_torch.core import agent as AG
     from repro_torch.core import rollout as RO
-    from repro_torch.kernels.denoiser import kernel as DK
-    from repro_torch.kernels.env_step import kernel as EK
     acfg = acfg or AG.AgentConfig()
-    launches = {"env_step": 0, "denoiser_chain": 0}
+    launches, ms = {}, {}
     for name, E, rate in cells:
         ecfg, traces = cell_setup(dev, name, E, rate, B)
         params = AG.init_actor(
@@ -277,14 +325,15 @@ def phase_main(dev, card, B=256, cells=CELLS, samplers=("ddpm", "ddim:5"),
             policy = actor_policy(ecfg, acfg, sampler=sampler, device=dev)
             gen = torch.Generator(device=dev).manual_seed(2)
             sync(dev)
-            EK.env_step.launches = 0
-            DK.denoiser_chain.launches = 0
+            reset_counts()
             t0 = time.perf_counter()
             res = RO.batch_rollout(ecfg, traces, policy, params, generator=gen,
                                    num_steps=ecfg.max_steps, device=dev)
             sync(dev)
             secs = time.perf_counter() - t0
-            n_env, n_chain = EK.env_step.launches, DK.denoiser_chain.launches
+            counts = read_counts()
+            n_env, n_chain = counts["env_step"], counts["denoiser_chain"]
+            assert counts["denoiser_step"] == 0, counts
             m = res.metrics
             for k, v in m.items():
                 assert v.shape == (B,) and bool(torch.isfinite(v.float()).all()), k
@@ -293,58 +342,71 @@ def phase_main(dev, card, B=256, cells=CELLS, samplers=("ddpm", "ddim:5"),
             assert n_env == n_chain, (n_env, n_chain)
             assert longest <= n_env <= ecfg.max_steps, (longest, n_env)
             assert int(m["num_scheduled"].sum()) > 0
-            launches["env_step"] += n_env
-            launches["denoiser_chain"] += n_chain
+            add_counts(launches, counts)
+            ms[(name, sampler)] = 1e3 * secs / n_env
             row = {"card": card, "cell": name, "sampler": sampler, "B": B,
                    "decisions": n_env, "ms_per_decision": 1e3 * secs / n_env,
-                   "launches": {"env_step": n_env, "denoiser_chain": n_chain},
+                   "launches": counts,
                    "metrics": {k: float(v.float().mean()) for k, v in m.items()}}
             log("phase 4 main path " + json.dumps(row))
-    return launches
+    return launches, ms
 
 
-def phase_profile(dev, card, B=256, steps=64, acfg=None):
-    """Where a decision's time goes on the main path (paper-8srv, "ddpm"):
-    a short rollout under torch.profiler. Device busy time is the sum of
-    the device-side events (one stream, so they do not overlap); the idle
-    share is 1 - busy / wall."""
-    from torch.profiler import ProfilerActivity, profile
+def phase_profile(dev, card, B=256, steps=64, acfg=None, sampler="ddpm",
+                  params=None, phase=4):
+    """Where a decision's time goes on the main path (paper-8srv): a short
+    rollout under torch.profiler. Device busy time is the sum of the
+    device-side events (one stream, so they do not overlap); the idle share
+    is 1 - busy / wall. `params` defaults to a random actor."""
     from repro_torch.actors.policies import actor_policy
     from repro_torch.core import agent as AG
     from repro_torch.core import rollout as RO
     acfg = acfg or AG.AgentConfig()
     ecfg, traces = cell_setup(dev, "paper-8srv", 8, 0.1, B)
-    params = AG.init_actor(
-        ecfg, acfg, generator=torch.Generator(device=dev).manual_seed(1),
-        device=dev)
-    policy = actor_policy(ecfg, acfg, device=dev)
+    if params is None:
+        params = AG.init_actor(
+            ecfg, acfg, generator=torch.Generator(device=dev).manual_seed(1),
+            device=dev)
+    policy = actor_policy(ecfg, acfg, sampler=sampler, device=dev)
 
     def run():
         RO.batch_rollout(ecfg, traces, policy, params, num_steps=steps,
                          generator=torch.Generator(device=dev).manual_seed(2),
                          device=dev)
-        sync(dev)
+    row = {"card": card, "cell": "paper-8srv", "sampler": sampler, "B": B,
+           "decisions": steps, **profile_device(dev, run, steps, "decision")}
+    log(f"phase {phase} profile " + json.dumps(row))
+    return row
+
+
+def profile_device(dev, run, units, unit):
+    """Wall and device time of `run()` (`units` units of work) under
+    torch.profiler, after one warm run. Device busy time is the sum of
+    the device-side events (one stream, so they do not overlap); the idle
+    share is 1 - busy / wall. Returns the per-unit numbers."""
+    from torch.profiler import ProfilerActivity, profile
     run()
+    sync(dev)
     acts = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         run()
+        sync(dev)
         wall = time.perf_counter() - t0
-    by_name, n_dev = {}, 0
+    by_name, n_dev = {}, 0        # kernel names cut to 60 characters
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CPU:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            name = e.name[:60]
+            by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
             n_dev += 1
     busy_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    row = {"card": card, "cell": "paper-8srv", "sampler": "ddpm", "B": B,
-           "decisions": steps, "wall_ms_per_decision": 1e3 * wall / steps,
-           "device_busy_ms_per_decision": busy_us / 1e3 / steps,
-           "device_idle_share": 1.0 - busy_us / 1e6 / wall,
-           "device_events_per_decision": n_dev / steps,
-           "top_device_us_per_decision": {n[:60]: us / steps for n, us in top}}
-    log("phase 4 profile " + json.dumps(row))
+    return {f"wall_ms_per_{unit}": 1e3 * wall / units,
+            f"device_busy_ms_per_{unit}": busy_us / 1e3 / units,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+            f"device_events_per_{unit}": n_dev / units,
+            f"top_device_us_per_{unit}": {n: us / units for n, us in top}}
 
 
 def _same_state(a, b, ctx):
@@ -368,8 +430,56 @@ def _same_metrics(a, b, ctx):
             assert torch.equal(a[k], b[k]), f"{ctx}: {k} differs"
 
 
-def phase_loop_parity(dev, B=256, cells=CELLS, acfg=None):
+def actor_loop_parity(dev, ecfg, traces, acfg, params, name, sampler,
+                      phase, B=256):
+    """The actor's kernel path against its plain path inside the loop:
+    the kernel path's actions replayed through the plain env give the same
+    trajectory (teacher-forced), and the two closed loops agree on the
+    aggregate episode metrics within 5 %."""
     from repro_torch.actors.policies import actor_policy
+    from repro_torch.core import rollout as RO
+    kw = dict(num_steps=ecfg.max_steps, device=dev)
+
+    def run(impl, collect=False):
+        pol = actor_policy(ecfg, acfg, sampler=sampler, device=dev, impl=impl)
+        return RO.batch_rollout(
+            ecfg, traces, pol, params, collect=collect, impl=impl,
+            generator=torch.Generator(device=dev).manual_seed(2), **kw)
+    k = run("auto", collect=True)
+    t = RO.batch_rollout(ecfg, traces, RO.sequence_policy(ecfg),
+                         {"seq": k.transitions.action}, impl="ref",
+                         collect=True, **kw)
+    ctx = f"{sampler} teacher {name}"
+    _same_state(k.final_state, t.final_state, ctx)
+    _same_metrics(k.metrics, t.metrics, ctx)
+    for f in ("valid", "done"):
+        assert torch.equal(getattr(k.transitions, f),
+                           getattr(t.transitions, f)), f"{ctx} {f}"
+    obs_err = (k.transitions.next_obs - t.transitions.next_obs).abs().max().item()
+    assert obs_err <= ENV_ATOL, f"{ctx} obs err {obs_err}"
+    log(f"phase {phase} {sampler} teacher-forced {name}: the kernel path's "
+        f"{k.transitions.action.shape[1]} decisions replayed through the "
+        f"plain env give the same trajectory (obs err {obs_err:.3g})")
+
+    p = run("ref")
+    same = torch.ones(B, dtype=torch.bool, device=dev)
+    for f in k.final_state._fields:
+        x, y = getattr(k.final_state, f), getattr(p.final_state, f)
+        same &= (x == y).reshape(B, -1).all(1)
+    agg = {}
+    for key in ("avg_response", "avg_quality", "num_scheduled",
+                "episode_return"):
+        a = k.metrics[key].double().mean().item()
+        b = p.metrics[key].double().mean().item()
+        agg[key] = (a, b)
+        assert abs(a - b) <= 0.05 * max(abs(b), 1e-6), (name, key, a, b)
+    log(f"phase {phase} {sampler} closed loop {name}: kernel vs plain means "
+        + json.dumps({k_: [round(a, 6), round(b, 6)] for k_, (a, b) in agg.items()})
+        + f" within 5%; envs with identical final state "
+        f"{int(same.sum())}/{B}")
+
+
+def phase_loop_parity(dev, B=256, cells=CELLS, acfg=None):
     from repro_torch.core import agent as AG
     from repro_torch.core import rollout as RO
     acfg = acfg or AG.AgentConfig()
@@ -383,50 +493,272 @@ def phase_loop_parity(dev, B=256, cells=CELLS, acfg=None):
         _same_metrics(k.metrics, p.metrics, f"fifo {name}")
         log(f"phase 5 fifo {name}: kernel path == plain path (final EnvState "
             f"and metrics; quality and return within {ENV_ATOL})")
-
         params = AG.init_actor(
             ecfg, acfg, generator=torch.Generator(device=dev).manual_seed(1),
             device=dev)
-
-        def run(impl, collect=False):
-            pol = actor_policy(ecfg, acfg, device=dev, impl=impl)
-            return RO.batch_rollout(
-                ecfg, traces, pol, params, collect=collect, impl=impl,
-                generator=torch.Generator(device=dev).manual_seed(2), **kw)
-        k = run("auto", collect=True)
-        t = RO.batch_rollout(ecfg, traces, RO.sequence_policy(ecfg),
-                             {"seq": k.transitions.action}, impl="ref",
-                             collect=True, **kw)
-        _same_state(k.final_state, t.final_state, f"teacher {name}")
-        _same_metrics(k.metrics, t.metrics, f"teacher {name}")
-        for f in ("valid", "done"):
-            assert torch.equal(getattr(k.transitions, f),
-                               getattr(t.transitions, f)), f"teacher {f}"
-        obs_err = (k.transitions.next_obs - t.transitions.next_obs).abs().max().item()
-        assert obs_err <= ENV_ATOL, f"teacher obs err {obs_err}"
-        log(f"phase 5 eat teacher-forced {name}: the kernel path's "
-            f"{k.transitions.action.shape[1]} decisions replayed through the "
-            f"plain env give the same trajectory (obs err {obs_err:.3g})")
-
-        p = run("ref")
-        same = torch.ones(B, dtype=torch.bool, device=dev)
-        for f in k.final_state._fields:
-            x, y = getattr(k.final_state, f), getattr(p.final_state, f)
-            same &= (x == y).reshape(B, -1).all(1)
-        agg = {}
-        for key in ("avg_response", "avg_quality", "num_scheduled",
-                    "episode_return"):
-            a = k.metrics[key].double().mean().item()
-            b = p.metrics[key].double().mean().item()
-            agg[key] = (a, b)
-            assert abs(a - b) <= 0.05 * max(abs(b), 1e-6), (name, key, a, b)
-        log(f"phase 5 eat closed loop {name}: kernel vs plain means "
-            + json.dumps({k_: [round(a, 6), round(b, 6)] for k_, (a, b) in agg.items()})
-            + f" within 5%; envs with identical final state "
-            f"{int(same.sum())}/{B}")
+        actor_loop_parity(dev, ecfg, traces, acfg, params, name, "ddpm", 5, B)
 
 
-def measure(env_timing, chain_timing, env_err, chain_err, launches, card):
+def phase_step(dev, A=10, H=256, Fs=(16, 20), Bs=(256, 300, 4096), T=10):
+    """denoiser_step kernel vs plain version; returns (max error, timing
+    inputs at the paper-8srv distilled main-path shape, B = 256, F = 16)."""
+    from repro_torch.core import diffusion as DF
+    from repro_torch.kernels.denoiser import kernel as DK
+    from repro_torch.kernels.denoiser import ops as KOPS
+    from repro_torch.kernels.denoiser.ref import denoiser_ref
+    g = torch.Generator(device=dev).manual_seed(4)
+    worst, timing = 0.0, None
+    for F in Fs:
+        p = DF.init_denoiser(A, F, H, generator=g, device=dev)
+        w = [t for layer in p["layers"] for t in (layer["w"], layer["b"])]
+        for B in Bs:
+            x = torch.randn((B, A), generator=g, device=dev)
+            f_s = torch.randn((B, F), generator=g, device=dev)
+            i = torch.full((B,), T, device=dev)
+            inp = torch.cat([x, DF.timestep_embedding(i), f_s], dim=-1)
+            got = DK.denoiser_step(inp, *w)
+            want = denoiser_ref(inp, *w)
+            sync(dev)
+            err = (got - want).abs().max().item()
+            assert got.shape == (B, A) and bool(torch.isfinite(got).all())
+            assert err <= STEP_ATOL, f"denoiser_step F={F} B={B}: err {err}"
+            worst = max(worst, err)
+            if (F, B) == (Fs[0], Bs[0]):
+                timing = (inp, *w)
+        # one decision, unbatched, through the ops door
+        got = KOPS.denoise_eps_fused(p, x[0], i[0], f_s[0])
+        want = DF.denoise_eps(p, x[0], i[0], f_s[0])
+        err = (got - want).abs().max().item()
+        assert got.shape == (A,) and err <= STEP_ATOL, f"1-D F={F}: {err}"
+        worst = max(worst, err)
+    log(f"phase 7 denoiser_step kernel ~ plain: F in {list(Fs)}, B in "
+        f"{list(Bs)} and a 1-D input, A={A} H={H}; max abs err {worst:.3g} "
+        f"(tol {STEP_ATOL})")
+    return worst, timing
+
+
+def phase_train(dev, card, num_envs=16, num_episodes=32, upd_iters=10):
+    """SAC at full width on paper-8srv: `sac.train` with every launch count
+    set to 0 just before it; then ms per update_step (CUDA events over
+    back-to-back updates on one batch), ms per collection decision, and
+    one update_step on the card against the CPU from the same state, batch
+    and draws (`card_vs_cpu`: each metric on the card, on the CPU, and
+    their relative difference). Returns (train state, launches in
+    train)."""
+    from repro_torch.common.device import to_device
+    from repro_torch.core import agent as AG
+    from repro_torch.core import sac as SAC
+    from repro_torch.core.replay import ReplayBuffer
+    ecfg = cell_env(8)
+    acfg = AG.AgentConfig()
+    scfg = SAC.SACConfig(batch_size=512, warmup_steps=256, update_every=8)
+    trace_fn = cell_traces(dev, 8, 0.1)
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    ts, hist = SAC.train(ecfg, acfg, scfg, trace_fn, num_episodes,
+                         num_envs=num_envs, log_every=0, device=dev)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    rounds = {h["round"]: h for h in hist}
+    updates = sum(r["updates"] for r in rounds.values())
+    losses = {k: rounds[max(rounds)][k] for k in
+              ("critic_loss", "actor_loss", "q_mean", "entropy", "q_batch")}
+    assert updates > 0 and int(ts.step) == updates, (updates, int(ts.step))
+    assert all(np.isfinite(v) for v in losses.values()), losses
+    assert counts["env_step"] > 0 and counts["denoiser_chain"] > 0, counts
+    assert counts["denoiser_step"] == 0, counts
+    assert [rounds[r]["warmup"] for r in sorted(rounds)][:2] == [True, False]
+
+    # collection alone: one actor round of num_envs episodes
+    gen = torch.Generator(device=dev).manual_seed(7)
+    buf = ReplayBuffer(1 << 16, ecfg.obs_shape, ecfg.action_dim)
+    traces = trace_fn(gen, num_envs)
+    sync(dev)
+    t1 = time.perf_counter()
+    _, n_new = SAC.collect_batch(ecfg, acfg, ts.actor, traces, gen, buf,
+                                 device=dev)
+    sync(dev)
+    collect_ms = 1e3 * (time.perf_counter() - t1) / ecfg.max_steps
+    rng = np.random.default_rng(0)
+    batch = SAC._sample_batch(buf, rng, scfg.batch_size, dev)
+    state = {"ts": ts}
+
+    def one_update():
+        state["ts"], _ = SAC.update_step(state["ts"], batch, ecfg=ecfg,
+                                         acfg=acfg, scfg=scfg, generator=gen)
+    upd_ms = time_ms(one_update, upd_iters, warmup=2)
+
+    def run_updates():
+        for _ in range(upd_iters):
+            one_update()
+    upd_profile = profile_device(dev, run_updates, upd_iters, "update")
+
+    # one update on the card and on the CPU from the same state and draws
+    cpu = torch.device("cpu")
+    B, A, T = scfg.batch_size, ecfg.action_dim, acfg.T
+    g = torch.Generator().manual_seed(11)
+    draws = {"next_x_T": torch.randn((B, A), generator=g),
+             "next_noises": torch.randn((T, B, A), generator=g),
+             "next_eps": torch.randn((B, A), generator=g),
+             "x_T": torch.randn((B, A), generator=g),
+             "noises": torch.randn((T, B, A), generator=g),
+             "eps": torch.randn((B, A), generator=g)}
+    _, m_dev = SAC.update_step(ts, batch, ecfg=ecfg, acfg=acfg, scfg=scfg,
+                               draws=to_device(draws, dev))
+    _, m_cpu = SAC.update_step(to_device(ts, cpu), to_device(batch, cpu),
+                               ecfg=ecfg, acfg=acfg, scfg=scfg, draws=draws)
+    pairs = {}
+    for k in m_cpu:
+        assert (m_dev[k].device.type, m_cpu[k].device.type) == (dev.type, "cpu")
+        a, b = float(m_dev[k]), float(m_cpu[k])
+        pairs[k] = [a, b, abs(a - b) / max(abs(b), 1e-12)]
+        assert abs(a - b) <= LOSS_RTOL * abs(b) + (
+            0.0 if k.endswith("loss") else 1e-6), (k, a, b)
+    row = {"card": card, "cell": "paper-8srv", "num_envs": num_envs,
+           "episodes": num_episodes, "rounds": len(rounds),
+           "train_s": secs, "updates": updates, "losses": losses,
+           "launches": counts, "ms_per_update_step": upd_ms,
+           "update_batch": scfg.batch_size,
+           "ms_per_collection_decision": collect_ms,
+           "collection_envs": num_envs, "transitions_collected": n_new,
+           "card_vs_cpu": pairs, "update_profile": upd_profile}
+    log("phase 8 sac train " + json.dumps(row))
+    return ts, counts
+
+
+def phase_distill(dev, card, teacher, student_iters=20):
+    """Distillation of phase 8's actor at the DistillConfig() defaults:
+    the teacher's observations (collect_obs: deterministic ddpm rollouts),
+    then distill_actor on them, each with every launch count set to 0 just
+    before it. Returns (teacher plus student, launches)."""
+    from repro_torch.actors import samplers as SMP
+    from repro_torch.actors.policies import init_student
+    from repro_torch.core import agent as AG
+    from repro_torch.core import diffusion as DF
+    from repro_torch.training import distill as DS
+    from repro_torch.training.optimizer import adam_init
+    ecfg = cell_env(8)
+    acfg = AG.AgentConfig()
+    dcfg = DS.DistillConfig(log_every=100)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    launches = {}
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    obs = DS.collect_obs(teacher, ecfg, acfg, episodes=dcfg.collect_episodes,
+                         num_steps=dcfg.collect_steps, generator=gen,
+                         device=dev)
+    sync(dev)
+    collect_s = time.perf_counter() - t0
+    c_collect = read_counts()
+    add_counts(launches, c_collect)
+    reset_counts()
+    t0 = time.perf_counter()
+    params, hist = DS.distill_actor(teacher, ecfg, acfg, dcfg, obs=obs,
+                                    generator=gen, device=dev)
+    sync(dev)
+    distill_s = time.perf_counter() - t0
+    c_distill = read_counts()
+    add_counts(launches, c_distill)
+    assert c_collect["env_step"] > 0 and \
+        c_collect["denoiser_chain"] == c_collect["env_step"], c_collect
+    assert c_distill["denoiser_chain"] == 1, c_distill   # all the targets
+    assert hist[-1]["loss"] < 0.5 * hist[0]["loss"], hist
+
+    # the student on 32 unseen x_T draws against the DDIM endpoint
+    sched = DF.vp_schedule(acfg.T, device=dev)
+    f_s = AG._encode(teacher, acfg, obs[:1]).expand(32, -1).contiguous()
+    x_T = torch.randn((32, ecfg.action_dim), generator=gen, device=dev)
+    want = SMP.chain_sample(teacher["denoiser"], sched, f_s, ecfg.action_dim,
+                            kind="ddim", K=acfg.T, x_T=x_T, impl="ref")
+    got = SMP.distilled_sample(params["student"], f_s, ecfg.action_dim,
+                               acfg.T, x_T=x_T, impl="ref")
+    fresh = SMP.distilled_sample(
+        init_student(ecfg, acfg, generator=gen, device=dev), f_s,
+        ecfg.action_dim, acfg.T, x_T=x_T, impl="ref")
+    err = (got - want).abs().mean().item()
+    err_fresh = (fresh - want).abs().mean().item()
+    assert err < 0.6 * err_fresh, (err, err_fresh)
+
+    # ms per student step on a batch of the targets
+    fs_b, x0_b, xT_b = DS._teacher_targets(teacher, obs[:dcfg.batch],
+                                           ecfg=ecfg, acfg=acfg,
+                                           generator=gen)
+    state = {"s": params["student"], "o": adam_init(params["student"])}
+
+    def one_step():
+        state["s"], state["o"], _ = DS._student_step(
+            state["s"], state["o"], fs_b, x0_b, xT_b, acfg=acfg, lr=dcfg.lr)
+    step_ms = time_ms(one_step, student_iters, warmup=2)
+
+    def run_steps():
+        for _ in range(student_iters):
+            one_step()
+    step_profile = profile_device(dev, run_steps, student_iters, "step")
+    row = {"card": card, "cell": "paper-8srv", "obs": int(obs.shape[0]),
+           "collect_s": collect_s, "distill_s": distill_s,
+           "steps": dcfg.steps, "batch": dcfg.batch, "dataset": dcfg.dataset,
+           "first_loss": hist[0]["loss"], "last_loss": hist[-1]["loss"],
+           "student_mae": err, "fresh_student_mae": err_fresh,
+           "ms_per_student_step": step_ms, "student_step_profile": step_profile,
+           "launches_collect": c_collect, "launches_distill": c_distill,
+           "chain_launches_for_targets": c_distill["denoiser_chain"]}
+    log("phase 9 distill " + json.dumps(row))
+    return params, launches
+
+
+def phase_distilled(dev, card, params8, ddpm_ms, B=256, cells=CELLS):
+    """The distilled main path: batch_rollout with sampler "distilled" on
+    each cell, every launch count set to 0 just before it; then the kernel
+    path against the plain path. Returns launches summed over the runs."""
+    from repro_torch.actors.policies import actor_policy, init_student
+    from repro_torch.core import agent as AG
+    from repro_torch.core import rollout as RO
+    acfg = AG.AgentConfig()
+    launches = {}
+    for name, E, rate in cells:
+        ecfg, traces = cell_setup(dev, name, E, rate, B)
+        if name == "paper-8srv":
+            params = params8
+        else:
+            g = torch.Generator(device=dev).manual_seed(1)
+            params = AG.init_actor(ecfg, acfg, generator=g, device=dev)
+            params["student"] = init_student(ecfg, acfg, generator=g,
+                                             device=dev)
+        policy = actor_policy(ecfg, acfg, sampler="distilled", device=dev)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        sync(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = RO.batch_rollout(ecfg, traces, policy, params, generator=gen,
+                               num_steps=ecfg.max_steps, device=dev)
+        sync(dev)
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        m = res.metrics
+        for k, v in m.items():
+            assert v.shape == (B,) and bool(torch.isfinite(v.float()).all()), k
+        decisions = counts["env_step"]
+        assert decisions == ecfg.max_steps, counts
+        assert counts["denoiser_step"] == decisions, counts
+        assert counts["denoiser_chain"] == 0, counts
+        assert int(m["num_scheduled"].sum()) > 0
+        add_counts(launches, counts)
+        row = {"card": card, "cell": name, "sampler": "distilled", "B": B,
+               "decisions": decisions,
+               "ms_per_decision": 1e3 * secs / decisions,
+               "ddpm_ms_per_decision": ddpm_ms.get((name, "ddpm")),
+               "launches": counts,
+               "metrics": {k: float(v.float().mean()) for k, v in m.items()}}
+        log("phase 10 distilled main path " + json.dumps(row))
+        actor_loop_parity(dev, ecfg, traces, acfg, params, name, "distilled",
+                          10, B)
+    return launches
+
+
+def measure(env_timing, chain_timing, step_timing, errs, launches, card):
     """One row per kernel at the main path's shapes. `ms` is the kernel's
     device time per launch from torch.profiler (CUDA events around
     back-to-back wrapper calls when the profiler shows no device time);
@@ -435,9 +767,11 @@ def measure(env_timing, chain_timing, env_err, chain_err, launches, card):
     element the function needs read once (an array it gathers from counts
     only the elements it gathers) and each output written once at the HBM
     rate, and the matrix products' FLOPs at the fp32 rate (no single
-    PyTorch call computes either function, so `library_ms` is null)."""
+    PyTorch call computes any of the three functions, so `library_ms` is
+    null). `launches` is each kernel's count summed over the main-path
+    runs (phases 4, 8, 9 and 10)."""
     from repro_torch.kernels.denoiser import kernel as DK
-    from repro_torch.kernels.denoiser.ref import denoiser_chain_ref
+    from repro_torch.kernels.denoiser.ref import denoiser_chain_ref, denoiser_ref
     from repro_torch.kernels.env_step import ops as EKO
     cfg, statics, st, a, q = env_timing
     env_k = lambda: EKO.env_step_fused(cfg, statics, st, a, q)  # noqa: E731
@@ -459,6 +793,12 @@ def measure(env_timing, chain_timing, env_err, chain_err, launches, card):
     chain_flops = 2 * x.shape[0] * tembs.shape[0] * (
         w1.numel() + w2.numel() + w3.numel())
     chain_bytes = nbytes(*chain_timing, x)          # inputs + the (B, A) output
+    step_k = lambda: DK.denoiser_step(*step_timing)  # noqa: E731
+    step_p = lambda: denoiser_ref(*step_timing)  # noqa: E731
+    inp, sw1, sw2, sw3 = (step_timing[0], step_timing[1], step_timing[3],
+                          step_timing[5])
+    step_flops = 2 * inp.shape[0] * (sw1.numel() + sw2.numel() + sw3.numel())
+    step_bytes = nbytes(*step_timing) + inp.shape[0] * sw3.shape[1] * 4
     # the launch floor: device time of a one-element kernel, and the time
     # per call of back-to-back launches of it (host launch rate)
     one = torch.zeros(1, device=x.device)
@@ -466,20 +806,23 @@ def measure(env_timing, chain_timing, env_err, chain_err, launches, card):
     floor = {"device_ms": kernel_device_ms(floor_fn, "elementwise"),
              "call_ms": time_ms(floor_fn, 200)}
     rows = []
-    for (name, src, replaces, k_fn, p_fn, err, nb, flops, kname) in (
+    for (name, src, replaces, k_fn, p_fn, nb, flops, kname) in (
             ("env_step", "src/repro_torch/csrc/env_step.cu",
              "src/repro/kernels/env_step/kernel.py:290", env_k, env_p,
-             env_err, env_bytes, 0, "env_step_kernel"),
+             env_bytes, 0, "env_step_kernel"),
             ("denoiser_chain", "src/repro_torch/csrc/denoiser_chain.cu",
              "src/repro/kernels/denoiser/kernel.py:115", chain_k, chain_p,
-             chain_err, chain_bytes, chain_flops, "chain_kernel")):
+             chain_bytes, chain_flops, "chain_kernel"),
+            ("denoiser_step", "src/repro_torch/csrc/denoiser_step.cu",
+             "src/repro/kernels/denoiser/kernel.py:50", step_k, step_p,
+             step_bytes, step_flops, "denoiser_step_kernel")):
         call_ms = time_ms(k_fn, 200)
         dev_ms = kernel_device_ms(k_fn, kname)
         plain_ms = time_ms(p_fn, 50)
         t_bytes, t_ops = nb / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": err,
+                     "max_abs_err": errs[name],
                      "ms": call_ms if dev_ms is None else dev_ms,
                      "ms_from": "events" if dev_ms is None else "profiler",
                      "call_ms": call_ms, "plain_ms": plain_ms,
@@ -508,7 +851,7 @@ def main():
     log(f"phase 1 card: {card} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    report = KB.build(["env_step", "denoiser_chain"])
+    report = KB.build(KERNELS)
     log(f"phase 1 built {sorted(report)} in parallel in "
         f"{time.perf_counter() - t0:.3f} s")
     for name, r in report.items():
@@ -517,14 +860,26 @@ def main():
                 log(f"phase 1 ptxas {name}: {line.strip()}")
 
     t0 = time.perf_counter()
-    env_err, env_timing = phase_env_step(dev)
-    chain_err, chain_timing = phase_chain(dev)
-    launches = phase_main(dev, card)
+    errs = {}
+    errs["env_step"], env_timing = phase_env_step(dev)
+    errs["denoiser_chain"], chain_timing = phase_chain(dev)
+    errs["denoiser_step"], step_timing = phase_step(dev)
+    launches, ddpm_ms = phase_main(dev, card)
     phase_profile(dev, card)
     phase_loop_parity(dev)
-    rows = measure(env_timing, chain_timing, env_err, chain_err, launches,
+    log(f"phases 2-5 and 7 took {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    ts, counts = phase_train(dev, card)
+    add_counts(launches, counts)
+    params8, counts = phase_distill(dev, card, ts.actor)
+    add_counts(launches, counts)
+    add_counts(launches, phase_distilled(dev, card, params8, ddpm_ms))
+    phase_profile(dev, card, sampler="distilled", params=params8, phase=10)
+    log(f"phases 8-10 took {time.perf_counter() - t0:.3f} s")
+    for name in KERNELS:
+        assert launches.get(name, 0) > 0, (name, launches)
+    rows = measure(env_timing, chain_timing, step_timing, errs, launches,
                    card)
-    log(f"phases 2-6 took {time.perf_counter() - t0:.3f} s")
     log(card)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

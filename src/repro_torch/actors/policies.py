@@ -1,14 +1,17 @@
 """The EAT actor as a rollout policy (port of `repro/actors/policies.py`,
-samplers "ddpm" and "ddim:K").
+samplers "ddpm", "ddim:K" and "distilled").
 
-The diffusion variants compute the action mean as `chain_sample` does, on
+The chain samplers compute the action mean as `chain_sample` does, on
 coefficients built once, so on the card every decision runs the
 hand-written chain kernel (DDPM in its affine form equals
-`reverse_sample`); the Gaussian variants take the MLP mean. The sigma
-head, exploration noise and clip are `agent.actor_sample`'s tail
-(`agent.gaussian_head`).
+`reverse_sample`); "distilled" runs the student head `params["student"]`
+through the one-call `denoiser_step` kernel; the Gaussian variants take the
+MLP mean. The sigma head, exploration noise and clip are
+`agent.actor_sample`'s tail (`agent.gaussian_head`).
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.actors import samplers as SMP
 from repro_torch.common.device import resolve_device
@@ -27,7 +30,9 @@ def actor_policy(ecfg: EnvConfig, acfg: AG.AgentConfig,
     The schedule, chain coefficients and timestep embeddings are built once
     on `device`. Per decision the policy draws x_T, the DDPM chain noises
     and the exploration eps from the rollout's generator. `impl="ref"` runs
-    the plain chain on any device."""
+    the plain chain (or the plain student) on any device. "distilled" reads
+    the student head from `params["student"]` (`init_student`,
+    `training.distill.distill_actor`)."""
     dev = resolve_device(device)
     kind, K = SMP.parse_sampler(sampler)
     if kind != "ddpm" and acfg.policy != "diffusion":
@@ -36,10 +41,15 @@ def actor_policy(ecfg: EnvConfig, acfg: AG.AgentConfig,
             f"{acfg.variant!r} is Gaussian — only 'ddpm' applies")
     sched = DF.vp_schedule(acfg.T, device=dev)
     coeffs = (SMP.chain_coeffs(sched, kind, K)
-              if acfg.policy == "diffusion" else None)
+              if acfg.policy == "diffusion" and kind != "distilled" else None)
 
     def policy(params, generator, traces, state, obs):
-        if coeffs is None:
+        if kind == "distilled":
+            f_s = AG._encode(params, acfg, obs)
+            mean = SMP.distilled_sample(params["student"], f_s,
+                                        ecfg.action_dim, acfg.T,
+                                        generator=generator, impl=impl)
+        elif coeffs is None:
             mean, _ = AG.actor_mean(params, acfg, ecfg, sched, obs)
         else:       # chain_sample on the prebuilt coefficients
             f_s = AG._encode(params, acfg, obs)
@@ -56,3 +66,14 @@ def actor_policy(ecfg: EnvConfig, acfg: AG.AgentConfig,
 
     policy.sampler = SMP.normalize_sampler(sampler)
     return policy
+
+
+def init_student(ecfg: EnvConfig, acfg: AG.AgentConfig, *, generator=None,
+                 device=None):
+    """Fresh distilled-student head: denoiser-shaped (input concat(x, t_emb,
+    f_s), tanh-bounded output), so it runs through the `denoiser_step`
+    kernel unchanged."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev) if generator is None else generator
+    return DF.init_denoiser(ecfg.action_dim, ecfg.obs_shape[1], acfg.hidden,
+                            generator=gen, device=dev)

@@ -1,14 +1,19 @@
 """Sampler family for the diffusion actor (port of
-`repro/actors/samplers.py`; the distilled sampler is not ported yet).
+`repro/actors/samplers.py`).
 
 * ``"ddpm"`` — the paper's full T-step reverse chain.
 * ``"ddim:K"`` — deterministic DDIM (eta = 0) over K strided timesteps.
+* ``"distilled"`` — a consistency-distilled student head: one
+  denoiser-shaped MLP call per decision (`training.distill` trains it to
+  regress the teacher's full-grid DDIM endpoint from the same x_T and f_s).
 
-Both run through the affine chain of `kernels/denoiser` — step j:
+The two chains run through the affine chain of `kernels/denoiser` — step j:
 x <- c_x[j] x + c_e[j] eps + c_n[j] noise_j — so they share one kernel and
 differ only in the (K,) coefficient vectors built here. `chain_sample`
 with the DDPM coefficients equals `diffusion.reverse_sample` on the same
-draws.
+draws. The student runs through the one-call `denoiser_step` kernel. Every
+sampler draws x_T first, so teacher and student see the same x_T for the
+same generator state.
 """
 from __future__ import annotations
 
@@ -22,11 +27,11 @@ from repro_torch.kernels.denoiser import ops as KOPS
 
 
 def parse_sampler(sampler: Optional[str]) -> Tuple[str, Optional[int]]:
-    """"ddpm" | "ddim:K" -> (kind, K). None means "ddpm"."""
+    """"ddpm" | "ddim:K" | "distilled" -> (kind, K). None means "ddpm"."""
     if sampler is None:
         return "ddpm", None
     s = str(sampler).strip().lower()
-    if s == "ddpm":
+    if s in ("ddpm", "distilled"):
         return s, None
     if s.startswith("ddim:"):
         try:
@@ -38,11 +43,8 @@ def parse_sampler(sampler: Optional[str]) -> Tuple[str, Optional[int]]:
         if K < 1:
             raise ValueError(f"ddim step count must be >= 1, got {K}")
         return "ddim", K
-    if s == "distilled":
-        raise ValueError("the 'distilled' sampler is not ported yet; choose "
-                         "'ddpm' or 'ddim:K'")
-    raise ValueError(f"unknown sampler {sampler!r}; choose 'ddpm' or "
-                     "'ddim:K'")
+    raise ValueError(f"unknown sampler {sampler!r}; choose 'ddpm', 'ddim:K' "
+                     "or 'distilled'")
 
 
 def normalize_sampler(sampler: Optional[str]) -> str:
@@ -149,3 +151,24 @@ def chain_sample(denoiser_params, sched: DF.DiffusionSchedule, f_s,
                             noises=noises)
     return KOPS.denoise_chain(denoiser_params, x, noises, f_s, c.tembs,
                               c.coef_x, c.coef_e, c.coef_n, impl=impl)
+
+
+def distilled_sample(student_params, f_s, action_dim: int, T: int, *,
+                     generator=None, x_T=None, impl: str = "auto",
+                     t_dim: int = 16):
+    """One student forward: x_0 = student(x_T, T, f_s), tanh-bounded.
+
+    x_T (..., A) is the sampler's first and only draw, from `generator`
+    unless given: the x_T the teacher chain would have started from.
+    `impl="auto"` runs the `denoiser_step` kernel on CUDA tensors and its
+    plain version on CPU tensors; `impl="ref"` runs
+    `diffusion.denoise_eps` on any device."""
+    shape = f_s.shape[:-1] + (action_dim,)
+    x = (torch.randn(shape, generator=generator, device=f_s.device)
+         if x_T is None else x_T)
+    i = torch.full(f_s.shape[:-1], T, device=f_s.device)
+    if impl == "ref":
+        return DF.denoise_eps(student_params, x, i, f_s, t_dim)
+    if impl != "auto":
+        raise ValueError(f"impl must be auto|ref, got {impl!r}")
+    return KOPS.denoise_eps_fused(student_params, x, i, f_s, t_dim)

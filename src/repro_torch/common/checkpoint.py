@@ -1,20 +1,27 @@
-"""Read parameter checkpoints written by the reference package.
+"""Parameter checkpoints in the reference package's format.
 
 The reference saves a params tree as `<dir>/<step>/arrays.npz`, one array
-per path key ("denoiser/layers/0/w"; list indices are digits). Loading
-rebuilds the nested dicts and lists with numpy alone, and the tensors keep
-the reference's layout (a dense weight is (in, out)), so a policy trained by
-the reference runs in the port unchanged.
+per path key ("denoiser/layers/0/w"; list indices are digits), beside a
+`treedef.json`. Loading rebuilds the nested dicts and lists with numpy
+alone, and the tensors keep the reference's layout (a dense weight is
+(in, out)), so a policy trained by the reference runs in the port
+unchanged; `save_checkpoint` writes the same layout, so
+`repro.common.checkpoint.restore_checkpoint` reads what the port trained.
+`train_state_from_jax` carries a whole reference SAC `TrainState` over.
 """
 from __future__ import annotations
 
+import json
 import os
+import shutil
+import tempfile
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.common.device import resolve_device
+from repro_torch.common.pytree import tree_map, tree_paths
 
 
 def latest_step(directory: str) -> Optional[int]:
@@ -66,3 +73,55 @@ def load_params(npz_dir: str, step: Optional[int] = None, *,
     with np.load(os.path.join(npz_dir, str(step), "arrays.npz")) as data:
         flat = {k: data[k] for k in data.files}
     return params_from_jax(_unflatten(flat), device=device)
+
+
+def save_checkpoint(directory: str, step: int, tree: Any) -> str:
+    """Write `tree` (nested dicts / lists of tensors) as
+    `<directory>/<step>/arrays.npz` with the reference's path keys, plus a
+    `treedef.json`; the step directory is replaced whole (written under a
+    temporary name, then renamed). Returns the step directory."""
+    os.makedirs(directory, exist_ok=True)
+    flat = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v)) for k, v in tree_paths(tree).items()}
+    tmp = tempfile.mkdtemp(dir=directory, prefix=".tmp_ckpt_")
+    try:
+        np.savez(os.path.join(tmp, "arrays.npz"), **flat)
+        with open(os.path.join(tmp, "treedef.json"), "w") as f:
+            json.dump({"step": step,
+                       "treedef": tree_map(lambda x: list(np.shape(x)), tree),
+                       "keys": sorted(flat)}, f)
+        final = os.path.join(directory, str(step))
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    return final
+
+
+def train_state_from_jax(ts: Any, *, device=None):
+    """A reference `repro.core.sac.TrainState` (leaves numpy or jax
+    arrays) as the port's `core.sac.TrainState` on `device`, its three
+    `AdamState`s and its step included. `params_from_jax` would turn the
+    NamedTuples into lists, so they are rebuilt field by field here."""
+    from repro_torch.core.sac import TrainState
+    from repro_torch.training.optimizer import AdamState
+    dev = resolve_device(device)
+
+    def tensor(x):
+        return torch.from_numpy(np.array(x)).to(dev)
+
+    def adam(st):
+        return AdamState(step=tensor(st.step),
+                         mu=params_from_jax(st.mu, device=dev),
+                         nu=params_from_jax(st.nu, device=dev))
+
+    return TrainState(
+        actor=params_from_jax(ts.actor, device=dev),
+        critic1=params_from_jax(ts.critic1, device=dev),
+        critic2=params_from_jax(ts.critic2, device=dev),
+        target1=params_from_jax(ts.target1, device=dev),
+        target2=params_from_jax(ts.target2, device=dev),
+        opt_actor=adam(ts.opt_actor), opt_critic1=adam(ts.opt_critic1),
+        opt_critic2=adam(ts.opt_critic2), step=tensor(ts.step))

@@ -3,6 +3,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.common.pytree import tree_map
+
 
 def resolve_device(device=None) -> torch.device:
     """`None` means `torch.device("cuda")`, and raises when CUDA is missing.
@@ -19,13 +21,7 @@ def resolve_device(device=None) -> torch.device:
 
 
 def to_device(tree, device: torch.device):
-    """Move every tensor of a nested dict / list / tuple tree to `device`."""
-    if isinstance(tree, torch.Tensor):
-        return tree.to(device)
-    if isinstance(tree, dict):
-        return {k: to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(to_device(v, device) for v in tree))
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(to_device(v, device) for v in tree)
-    return tree
+    """Move every tensor of a nested dict / list / tuple tree to `device`
+    (a tensor already there is kept, not copied)."""
+    return tree_map(
+        lambda x: x.to(device) if isinstance(x, torch.Tensor) else x, tree)

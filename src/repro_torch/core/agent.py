@@ -1,5 +1,5 @@
-"""Actor construction for EAT and its ablations (port of
-`repro/core/agent.py`; the critics come with the training slice).
+"""Actor and critic construction for EAT and its ablations (port of
+`repro/core/agent.py`).
 
 Variant table (paper §VI.A.3):
     EAT     = attention encoder + diffusion policy
@@ -126,3 +126,22 @@ def actor_sample(params, acfg: AgentConfig, ecfg: EnvConfig, sched, obs, *,
 def to_env_action(a):
     """[-1, 1] -> [0, 1] (the env's native action range)."""
     return (a + 1.0) * 0.5
+
+
+# ----------------------------------------------------------------------
+# critics (paper Table VII: 2 x 256 FC, Mish)
+def init_critic(ecfg: EnvConfig, hidden: int = 256, *, generator=None,
+                device=None) -> Dict:
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev) if generator is None else generator
+    obs_dim = ecfg.obs_shape[0] * ecfg.obs_shape[1]
+    return init_mlp([obs_dim + ecfg.action_dim, hidden, hidden, 1],
+                    generator=gen, device=dev)
+
+
+def critic_apply(params, obs, action):
+    """Q(s, a): the flattened obs (..., 3, E+l) and the action (..., A)
+    through the Mish MLP; returns (...)."""
+    flat = obs.reshape(obs.shape[:-2] + (-1,))
+    x = torch.cat([flat, action], dim=-1)
+    return mlp_apply(params, x, activation=mish)[..., 0]

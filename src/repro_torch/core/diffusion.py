@@ -87,3 +87,22 @@ def reverse_sample(p: Dict, sched: DiffusionSchedule, f_s, action_dim: int,
         noise = noises[step] if i > 0 else torch.zeros_like(x)
         x = mean + torch.sqrt(torch.clamp(var, min=1e-12)) * noise   # Eq. 12
     return torch.tanh(x)
+
+
+def bc_loss(p: Dict, sched: DiffusionSchedule, f_s, actions, *,
+            generator=None, i=None, noise=None):
+    """Behaviour-cloning denoising loss (optional regulariser, Diffusion-QL
+    style): predict the noise added to real actions. The timestep indices
+    i (...,) in [0, T) and the noise (..., A) are drawn from `generator`,
+    in that order, unless given."""
+    T = sched.betas.shape[0]
+    if i is None:
+        i = torch.randint(0, T, actions.shape[:-1], generator=generator,
+                          device=actions.device)
+    if noise is None:
+        noise = torch.randn(actions.shape, generator=generator,
+                            device=actions.device)
+    abar = sched.alpha_bars[i.to(torch.int64)][..., None]
+    x_i = torch.sqrt(abar) * actions + torch.sqrt(1 - abar) * noise
+    eps = denoise_eps(p, x_i, i + 1, f_s)
+    return torch.mean(torch.square(eps - noise))

@@ -30,8 +30,8 @@ from repro_torch.core.obs import (INF, QueueView, observe_from, server_down,
 
 __all__ = ["INF", "QueueView", "observe_from", "server_down", "visible_queue",
            "EnvConfig", "EnvState", "FAULT_COLS", "has_faults", "reset",
-           "decision_step", "step_with_queue", "reset_view",
-           "decision_statics", "episode_metrics"]
+           "observe", "decision_step", "step", "step_with_queue",
+           "reset_view", "decision_statics", "episode_metrics"]
 
 #: fault-schedule trace columns: f_down_start / f_down_end (B, E, F) crash
 #: intervals, f_slow (B, E) straggler multipliers, f_cold (B, 1) cold-restart
@@ -108,6 +108,12 @@ def reset(cfg: EnvConfig, batch: int, *, device=None) -> EnvState:
         task_start=full((K,), 0.0, f32), task_finish=full((K,), 0.0, f32),
         task_steps=full((K,), 0, i32), task_quality=full((K,), 0.0, f32),
         task_reload=full((K,), 0, i32), steps_taken=full((), 0, i32))
+
+
+# ----------------------------------------------------------------------
+def observe(cfg: EnvConfig, trace: Dict, state: EnvState) -> torch.Tensor:
+    """Eq.-6 state matrix, normalised: (B, 3, E+l)."""
+    return observe_from(cfg, trace, state, visible_queue(cfg, trace, state))
 
 
 # ----------------------------------------------------------------------
@@ -287,6 +293,15 @@ def decision_step(cfg: EnvConfig, trace: Dict, state: EnvState, action,
     (state', reward (B,), done (B,), info); the caller owns the next
     observation."""
     return _decide(cfg, decision_statics(cfg, trace), state, action, q)
+
+
+def step(cfg: EnvConfig, trace: Dict, state: EnvState, action):
+    """One decision for B envs, the queue view taken from `state`.
+    Returns (state', obs', reward, done, info), as `step_with_queue` gives
+    them."""
+    q = visible_queue(cfg, trace, state)
+    new_state, reward, done, info = decision_step(cfg, trace, state, action, q)
+    return new_state, observe(cfg, trace, new_state), reward, done, info
 
 
 def step_with_queue(cfg: EnvConfig, trace: Dict, state: EnvState,

@@ -19,22 +19,12 @@
 // holding W2 on chip is later work.
 #include <cuda_runtime.h>
 
+#include "mlp_common.cuh"
+
 namespace {
 
 constexpr int ROWS = 4;       // batch rows per block
 constexpr int THREADS = 256;  // one hidden column per thread (strided if H > 256)
-
-__device__ __forceinline__ float mish(float v) {
-  // softplus as logaddexp(v, 0) = max(v, 0) + log1p(exp(-|v|)), as
-  // jax.nn.softplus computes it
-  const float sp = fmaxf(v, 0.f) + log1pf(expf(-fabsf(v)));
-  return v * tanhf(sp);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 __global__ void __launch_bounds__(THREADS)
 chain_kernel(const float* __restrict__ x, const float* __restrict__ noises,

@@ -3,9 +3,9 @@
 Each kernel is one `.cu` file with a plain C entry point (no PyTorch
 headers, so a build takes seconds). It is compiled on first use for
 `sm_90a` into `build/` at the root of the checkout, under a name that
-carries a hash of its source and flags, so an edited source is rebuilt and
-a stale library is never loaded. `build` starts one nvcc per source, all at
-once.
+carries a hash of its source, the shared headers (`csrc/*.cuh`) and its
+flags, so an edited source is rebuilt and a stale library is never
+loaded. `build` starts one nvcc per source, all at once.
 """
 from __future__ import annotations
 
@@ -24,7 +24,8 @@ BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: per-kernel flags; env_step's clock must round like the reference, so
 #: nvcc may not contract a multiply and an add into one FMA there
-EXTRA_FLAGS = {"env_step": ("-fmad=false",), "denoiser_chain": ()}
+EXTRA_FLAGS = {"env_step": ("-fmad=false",), "denoiser_chain": (),
+               "denoiser_step": ()}
 
 
 def nvcc_path() -> str:
@@ -42,7 +43,9 @@ def _flags(name: str):
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha1(src + " ".join(_flags(name)).encode()).hexdigest()[:12]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    tag = hashlib.sha1(src + headers
+                       + " ".join(_flags(name)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{tag}.so"
 
 

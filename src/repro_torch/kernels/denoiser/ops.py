@@ -1,14 +1,22 @@
-"""Entry point of the whole-chain denoiser on the params dict.
+"""Entry points of the denoiser kernels on the params dict.
 
-`impl="auto"` dispatches by the tensors' device: the CUDA kernel for CUDA
-tensors (it launches or raises; there is no fallback), the plain PyTorch
-version for CPU tensors. `impl="ref"` takes the plain version on any device.
-The params dict is validated first: the kernel hard-codes the paper's
+* `denoise_eps_fused`: one eps-MLP forward (drop-in for
+  `core.diffusion.denoise_eps`), one `denoiser_step` launch on the card.
+* `denoise_chain`: the whole K-step reverse chain, one `denoiser_chain`
+  launch on the card. `impl="auto"` dispatches by the tensors' device: the
+  CUDA kernel for CUDA tensors (it launches or raises; there is no
+  fallback), the plain PyTorch version for CPU tensors. `impl="ref"` takes
+  the plain version on any device.
+
+The params dict is validated first: the kernels hard-code the paper's
 3-layer Mish MLP (Table VII).
 """
 from __future__ import annotations
 
-from repro_torch.kernels.denoiser.kernel import denoiser_chain
+import torch
+
+from repro_torch.core.diffusion import timestep_embedding
+from repro_torch.kernels.denoiser.kernel import denoiser_chain, denoiser_step
 from repro_torch.kernels.denoiser.ref import denoiser_chain_ref
 
 
@@ -29,6 +37,19 @@ def _flat_weights(denoiser_params):
             "denoise_eps for other depths")
     return (layers[0]["w"], layers[0]["b"], layers[1]["w"], layers[1]["b"],
             layers[2]["w"], layers[2]["b"])
+
+
+def denoise_eps_fused(denoiser_params, x, i, f_s, t_dim: int = 16):
+    """eps(x_i, i, f_s) through the one-call kernel: x (..., A), i (...,),
+    f_s (..., F), with ... empty or one batch axis (a 1-D input is
+    expanded and squeezed back)."""
+    w = _flat_weights(denoiser_params)
+    inp = torch.cat([x, timestep_embedding(i, t_dim), f_s], dim=-1)
+    squeeze = inp.ndim == 1
+    if squeeze:
+        inp = inp[None]
+    out = denoiser_step(inp, *w)
+    return out[0] if squeeze else out
 
 
 def denoise_chain(denoiser_params, x, noises, f_s, tembs, coef_x, coef_e,

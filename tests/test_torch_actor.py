@@ -90,7 +90,8 @@ def test_parse_and_normalize_sampler():
     assert TSMP.parse_sampler(None) == ("ddpm", None)
     assert TSMP.parse_sampler(" DDIM:5 ") == ("ddim", 5)
     assert TSMP.normalize_sampler("ddim:3") == "ddim:3"
-    for bad in ("ddim:x", "ddim:0", "euler", "distilled"):
+    assert TSMP.parse_sampler("distilled") == ("distilled", None)
+    for bad in ("ddim:x", "ddim:0", "euler"):
         with pytest.raises(ValueError):
             TSMP.parse_sampler(bad)
 

@@ -350,3 +350,54 @@ def test_carried_gang_reuse():
     assert int(tout[0].task_status[0, 0]) == 1
     assert int(tout[0].task_reload.sum()) == 0
     np.testing.assert_array_equal(tout[0].server_gang[0].numpy(), [0, 0, -1, -1])
+
+
+# ------------------------------------------------------------- observe / step
+@pytest.mark.parametrize("faults", [False, True], ids=["plain", "faults"])
+def test_observe_and_step_match_reference(faults):
+    """`observe` and the legacy `step` (queue view recomputed from the
+    state) against the reference's, vmapped there, over a few decisions."""
+    rng = np.random.default_rng(31 + faults)
+    jcfg, tcfg, jtr, ttr, jst, tst, ja, ta = _both(rng, 8, 20, 3, faults=faults)
+    for step in range(3):
+        ctx = f"faults={faults} step={step}"
+        jobs = jax.vmap(lambda tr, st: JEV.observe(jcfg, tr, st))(jtr, jst)
+        np.testing.assert_allclose(TEV.observe(tcfg, ttr, tst).numpy(),
+                                   np.asarray(jobs), atol=OBS_TOL, err_msg=ctx)
+        jns, jobs2, jr, jd, jinfo = jax.vmap(
+            lambda tr, st, a: JEV.step(jcfg, tr, st, a))(jtr, jst, ja)
+        tns, tobs2, tr_, td, tinfo = TEV.step(tcfg, ttr, tst, ta)
+        _assert_state(jns, tns, ctx)
+        np.testing.assert_allclose(tobs2.numpy(), np.asarray(jobs2),
+                                   atol=OBS_TOL, err_msg=ctx)
+        np.testing.assert_allclose(tr_.numpy(), np.asarray(jr),
+                                   rtol=REWARD_RTOL, atol=1e-6, err_msg=ctx)
+        np.testing.assert_array_equal(td.numpy(), np.asarray(jd), err_msg=ctx)
+        assert set(tinfo) == set(jinfo)
+        for k in ("scheduled", "task", "reuse", "steps"):
+            np.testing.assert_array_equal(tinfo[k].numpy(),
+                                          np.asarray(jinfo[k]), err_msg=k)
+        jst, tst = jns, tns
+        a = _np_actions(rng, 8, jcfg.action_dim)
+        ja, ta = jnp.asarray(a), torch.from_numpy(a)
+
+
+@pytest.mark.parametrize("faults", [False, True], ids=["plain", "faults"])
+def test_step_equals_step_with_queue(faults):
+    """`step` is `step_with_queue` on the state's own queue view, bit for
+    bit, on every output."""
+    rng = np.random.default_rng(41 + faults)
+    _, tcfg, _, ttr, _, tst, _, ta = _both(rng, 8, 20, 3, faults=faults)
+    for _ in range(4):
+        got = TEV.step(tcfg, ttr, tst, ta)
+        want = TEV.step_with_queue(tcfg, ttr, tst,
+                                   TEV.visible_queue(tcfg, ttr, tst), ta)
+        for f in TEV.EnvState._fields:
+            assert torch.equal(getattr(got[0], f), getattr(want[0], f)), f
+        for g, w in zip(got[1:4], (want[2], want[3], want[4])):
+            assert torch.equal(g, w)
+        assert got[4].keys() == want[5].keys()
+        for k in got[4]:
+            assert torch.equal(got[4][k], want[5][k]), k
+        tst = got[0]
+        ta = torch.from_numpy(_np_actions(rng, 8, tcfg.action_dim))

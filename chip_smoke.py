@@ -19,8 +19,9 @@ runs, one line per result:
    and a short profiled rollout: device busy time and idle share;
 5. kernel path against plain path inside the loop: fifo closed loop,
    EAT teacher-forced, EAT closed loop on aggregate metrics;
-6. a timing row per kernel: device and call time, plain-version time and
-   bound, at the main path's shapes;
+6. a timing row per kernel: device and call time, plain-version time,
+   bound and (flash_attention) `scaled_dot_product_attention`'s time, at
+   the main path's shapes;
 7. the denoiser_step kernel against its plain version (A = 10, H = 256,
    F in {16, 20}, B in {256, 300, 4096}, and a 1-D input);
 8. SAC training at full width on paper-8srv (`core.sac.train`: a uniform
@@ -34,7 +35,20 @@ runs, one line per result:
    B = 256 on paper-8srv (phase 9's student) and paper-12srv (a random
    teacher and student), one denoiser_step launch per decision and no
    chain launch, kernel path against plain path;
-then a `kernels` JSON line after the card's `nvidia-smi` line, and
+11. the flash_attention kernel against its plain version, fp32 and bf16:
+   tinyllama's prefill (B = 1, S = T = 2048, H = 32, KV = 4, hd = 64,
+   causal), a c = 4 chunk batch, hd 128 and 256, full attention with
+   S != T, a sliding window of 48, S = 17 / T = 33;
+12. the serving main path: a `ServingEngine` of 8 servers serving
+   tinyllama-1.1b at full width (1.1 B parameters, fp32) in virtual time,
+   16 requests of a paper-8srv trace (prompts of 256-2048 tokens), every
+   decision from phase 8's actor on `engine.observe()`, every prefill layer
+   a flash_attention launch; per request the prefill and decode times, the
+   QoS summary, peak device memory, the served logits and tokens against
+   the plain attention on three requests of different c, and a profiled
+   generate at S = 2048;
+then the phase 6 rows, a `kernels` JSON line after the card's
+`nvidia-smi` line, and
 `{"ok": true, "device": {...}}` as the last line.
 
 A failing phase raises and the script exits non-zero; nothing is caught.
@@ -42,6 +56,7 @@ Without CUDA it exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -61,7 +76,28 @@ CHAIN_ATOL = 1e-4     # ~10x the fp32-vs-fp64 gap of the plain chain
 STEP_ATOL = 1e-5      # one MLP pass: fp32 sums in another order, a tanh
 ENV_ATOL = 1e-5       # quality / obs / reward (exp and a reordered sum)
 LOSS_RTOL = 1e-4      # one SAC update, card against CPU
-KERNELS = ("env_step", "denoiser_chain", "denoiser_step")
+# served prefill logits, kernel against plain attention, relative to the
+# largest |logit|: each of the 22 layers' attention differs by ~1e-6 of its
+# unit-scale output (phase 11), and fp32 sums over d_model = 2048 add
+# ~1e-6 more per layer; 22 layers compound that to ~1e-5 at most. 1e-3
+# leaves that 100x of room while a wrong mask, GQA map or tile edge moves
+# the logits by O(1).
+LOGIT_RTOL = 1e-3
+KERNELS = ("env_step", "denoiser_chain", "denoiser_step", "flash_attention")
+# flash_attention against its plain version: the tolerances of
+# tests/test_kernels.py (fp32 2e-5; bf16 3e-2 against fp32 attention of the
+# same bf16 inputs), rtol = atol
+FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+# (case, B, S, T, H, KV, hd, causal, window)
+FA_CASES = (
+    ("tinyllama prefill", 1, 2048, 2048, 32, 4, 64, True, 0),
+    ("c=4 chunk batch", 4, 512, 512, 32, 4, 64, True, 0),
+    ("hd 128 (qwen2 heads)", 2, 300, 300, 12, 2, 128, True, 0),
+    ("hd 256 (gemma heads)", 1, 200, 200, 16, 16, 256, True, 0),
+    ("full, S != T", 2, 96, 160, 8, 4, 64, False, 0),
+    ("window 48, tiles of 64", 1, 256, 256, 8, 2, 64, True, 48),
+    ("S=17 T=33", 1, 17, 33, 4, 1, 64, False, 0),
+)
 CELLS = (("paper-8srv", 8, 0.1), ("paper-12srv", 12, 0.15))
 
 
@@ -148,8 +184,11 @@ def time_ms(fn, iters, warmup=3):
 
 
 def kernel_device_ms(fn, name, iters=20):
-    """Mean device time of the kernel named `name` per launch, from
-    torch.profiler; None when the profiler reports no device time."""
+    """(mean device ms per launch of the kernel named `name`, launches the
+    profiler recorded) over `iters` calls under torch.profiler; (None, 0)
+    when it records none. The mean is over the recorded device events: late
+    in a long process the profiler can record fewer launches than were
+    made, and `key_averages()`'s total over `iters` then under-counts."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -157,11 +196,9 @@ def kernel_device_ms(fn, name, iters=20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
-    for evt in prof.key_averages():
-        if name in evt.key:
-            total += getattr(evt, "device_time_total", 0.0)
-    return total / iters / 1e3 if total > 0 else None
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type != torch.autograd.DeviceType.CPU and name in e.name]
+    return (sum(us) / len(us) / 1e3, len(us)) if us else (None, 0)
 
 
 def nbytes(*tensors):
@@ -171,8 +208,10 @@ def nbytes(*tensors):
 def _wrappers():
     from repro_torch.kernels.denoiser import kernel as DK
     from repro_torch.kernels.env_step import kernel as EK
+    from repro_torch.kernels.flash_attention import kernel as FK
     return {"env_step": EK.env_step, "denoiser_chain": DK.denoiser_chain,
-            "denoiser_step": DK.denoiser_step}
+            "denoiser_step": DK.denoiser_step,
+            "flash_attention": FK.flash_attention}
 
 
 def reset_counts():
@@ -758,21 +797,252 @@ def phase_distilled(dev, card, params8, ddpm_ms, B=256, cells=CELLS):
     return launches
 
 
-def measure(env_timing, chain_timing, step_timing, errs, launches, card):
+def phase_flash(dev, cases=FA_CASES):
+    """flash_attention kernel vs plain version (`impl="ref"`) through the
+    (B, S, H, hd) entry point, fp32 and bf16; returns (max error over the
+    fp32 cases, timing inputs at tinyllama's prefill shape)."""
+    from repro_torch.kernels.flash_attention import ops as FA
+    g = torch.Generator(device=dev).manual_seed(6)
+    worst, timing = {}, None
+    for (case, B, S, T, H, KV, hd, causal, window) in cases:
+        q32 = torch.randn((B, S, H, hd), generator=g, device=dev)
+        k32 = torch.randn((B, T, KV, hd), generator=g, device=dev)
+        v32 = torch.randn((B, T, KV, hd), generator=g, device=dev)
+        errs = {}
+        for dtype, tol in FA_TOL.items():
+            q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+            got = FA.attention(q, k, v, causal=causal, window=window)
+            want = FA.attention(q.float(), k.float(), v.float(),
+                                causal=causal, window=window, impl="ref")
+            sync(dev)
+            assert got.dtype == dtype and got.shape == (B, S, H, hd)
+            assert bool(torch.isfinite(got).all()), case
+            diff = (got.float() - want).abs()
+            excess = (diff - tol * (1.0 + want.abs())).max().item()
+            assert excess <= 0.0, f"flash {case} {dtype}: err {diff.max()}"
+            name = str(dtype).replace("torch.", "")
+            errs[name] = diff.max().item()
+            worst[name] = max(worst.get(name, 0.0), errs[name])
+        if timing is None:
+            timing = (q32, k32, v32)
+        log(f"phase 11 flash_attention {case}: B={B} S={S} T={T} H={H} "
+            f"KV={KV} hd={hd} causal={causal} window={window}; max abs err "
+            + json.dumps(errs))
+    log(f"phase 11 flash_attention kernel ~ plain on {len(cases)} cases: "
+        f"max abs err {json.dumps(worst)} (tol fp32 {FA_TOL[torch.float32]}, "
+        f"bf16 {FA_TOL[torch.bfloat16]}, rtol = atol)")
+    return worst["float32"], timing
+
+
+class SyncTimer:
+    """A tracer for the executor's `tracer=` hook: every span waits for the
+    device at its start and end and records (name, args, seconds) on the
+    synchronised host clock."""
+    enabled = True
+
+    def __init__(self, dev):
+        self.dev, self.spans = dev, []
+
+    @contextlib.contextmanager
+    def span(self, name, cat="phase", **args):
+        sync(self.dev)
+        t0 = time.perf_counter()
+        yield
+        sync(self.dev)
+        self.spans.append((name, args, time.perf_counter() - t0))
+
+
+def _logits_at(ex, arch, params, req, tokens, impl):
+    """Last logits after prefilling req.prompt and decoding `tokens`."""
+    model = ex.model(arch)
+    logits, cache = ex.prefill(arch, params, req.prompt, req.patches,
+                               req.steps, req.max_new_tokens, impl=impl)
+    for t in tokens:
+        tok = torch.tensor([[int(t)]], device=ex.device)
+        logits, cache = model.decode(params, cache, tok, torch.float32)
+    return logits[0, -1, :model.cfg.vocab_size]
+
+
+def phase_serve(dev, card, actor, n_requests=16, max_decisions=4096,
+                arch="tinyllama-1.1b", reduced=False, prompt_max=2048):
+    """The serving main path at tinyllama-1.1b's full width: a
+    ServingEngine of 8 servers in virtual time, fed the first n_requests
+    tasks of a paper-8srv trace (prompts of 256-2048 tokens, 16 new tokens
+    each) as the clock reaches them, every decision from the EAT actor
+    (phase 8's, sampler "ddpm") on engine.observe(), every launch count
+    set to 0 just before; weight loads, prefill and decode are timed on
+    the synchronised host clock. Then the kernel path against the plain
+    attention on three served requests of different c, and a profiled
+    generate at S = 2048. `reduced` and `prompt_max` shrink it for a rehearsal on the
+    CPU. Returns the launches of the served run."""
+    from repro_torch.actors.policies import actor_policy
+    from repro_torch.common.pytree import param_count
+    from repro_torch.core import agent as AG
+    from repro_torch.core.workload import TraceConfig, make_trace
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.telemetry.trace import NULL_TRACER
+    ecfg, acfg = cell_env(8), AG.AgentConfig()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    eng = ServingEngine(num_servers=8, archs=[arch], queue_window=8,
+                        reduced=reduced, time_dilation=1.0, s_min=4,
+                        s_max=32, device=dev)
+    cfg = eng.executor.model(arch).cfg
+    assert eng.observe().shape == ecfg.obs_shape, eng.observe().shape
+    gen = torch.Generator(device=dev).manual_seed(12)
+    tr = make_trace(TraceConfig(num_tasks=32, arrival_rate=0.1,
+                                max_servers=8), generator=gen, device=dev)
+    arrive = tr["arr_time"][:n_requests].tolist()
+    cs = tr["c"][:n_requests].tolist()
+    rng = np.random.default_rng(12)
+    lens = rng.integers(prompt_max // 8, prompt_max + 1, n_requests)
+    pending = [Request(rid=i, arch=arch,
+                       prompt=rng.integers(0, cfg.vocab_size, int(lens[i])),
+                       patches=int(cs[i]), arrive_t=float(arrive[i]),
+                       max_new_tokens=16) for i in range(n_requests)]
+    policy = actor_policy(ecfg, acfg, sampler="ddpm", device=dev)
+    timer = SyncTimer(dev)
+    eng.executor.tracer = timer
+    kept = {}                 # c -> (request, the gang leader's params)
+    loads = []                # seconds of each weight load since the last
+    serve, load = eng._generate, eng._load
+
+    def generate_and_keep(req, steps, servers):
+        serve(req, steps, servers)
+        if req.patches not in kept and len(kept) < 3:
+            kept[req.patches] = (req, servers[0].params)
+
+    def timed_load(server, arch_):
+        sync(dev)
+        t = time.perf_counter()
+        load(server, arch_)
+        sync(dev)
+        loads.append(time.perf_counter() - t)
+    eng._generate, eng._load = generate_and_keep, timed_load
+    rows, decisions = [], 0
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    while (pending or eng.queue) and decisions < max_decisions:
+        while pending and pending[0].arrive_t <= eng.now():
+            eng.submit(pending.pop(0))
+        obs = torch.from_numpy(eng.observe()).to(dev)[None]
+        a, _ = policy(actor, gen, None, None, obs)
+        req = eng.try_schedule(a[0].cpu().numpy())
+        decisions += 1
+        if req is not None:
+            (_, _, pre_s), (_, _, dec_s) = timer.spans[-2:]
+            rows.append({"rid": req.rid, "c": req.patches,
+                         "prompt": len(req.prompt), "steps": req.steps,
+                         "reused": req.reused, "loads": len(loads),
+                         "load_ms": 1e3 * sum(loads),
+                         "prefill_ms": 1e3 * pre_s,
+                         "decode_ms_per_token": 1e3 * dec_s / req.steps})
+            loads.clear()
+            log("phase 12 served " + json.dumps(rows[-1]))
+    sync(dev)
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    served = len(eng.done)
+    assert served == n_requests and not pending and not eng.queue, \
+        (served, len(pending), len(eng.queue), decisions)
+    for r in eng.done:
+        assert r.tokens is not None and len(r.tokens) == r.steps
+        assert ((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all()
+    assert counts["flash_attention"] == cfg.num_layers * served, counts
+    assert counts["denoiser_chain"] == decisions, counts
+    assert counts["env_step"] == 0 and counts["denoiser_step"] == 0, counts
+    qos = eng.qos_summary()
+    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else None)
+    log("phase 12 serve " + json.dumps({
+        "card": card, "arch": arch, "params": param_count(next(
+            s.params for s in eng.pool.servers if s.params is not None)),
+        "servers": 8, "requests": n_requests,
+        "decisions": decisions, "wall_s": secs, "launches": counts,
+        "flash_attention_launches": counts["flash_attention"],
+        "peak_device_bytes": peak, "qos_summary": qos}))
+
+    # the kernel path against the plain attention, same params and prompts
+    ex = eng.executor
+    ex.tracer = NULL_TRACER          # no syncs of the timer from here on
+    for c, (req, params) in sorted(kept.items()):
+        lk = _logits_at(ex, arch, params, req, [], "auto")
+        lr = _logits_at(ex, arch, params, req, [], "ref")
+        err = (lk - lr).abs().max().item()
+        scale = max(1.0, lr.abs().max().item())
+        assert err <= LOGIT_RTOL * scale, (c, err, scale)
+        toks_ref = ex.generate(arch, params, req.prompt, req.patches,
+                               req.steps, req.max_new_tokens, impl="ref")
+        row = {"rid": req.rid, "c": c, "prompt": len(req.prompt),
+               "steps": req.steps, "max_abs_logit_err": err,
+               "max_abs_logit": scale, "tol": LOGIT_RTOL * scale,
+               "tokens_equal": bool(np.array_equal(req.tokens, toks_ref))}
+        if not row["tokens_equal"]:
+            i = int(np.argmax(req.tokens != toks_ref))
+            a_k, a_r = int(req.tokens[i]), int(toks_ref[i])
+            gaps = {}
+            for impl in ("auto", "ref"):
+                lg = _logits_at(ex, arch, params, req, req.tokens[:i], impl)
+                gaps[impl] = (lg[a_k] - lg[a_r]).item()
+            row["first_fork"] = {"index": i, "kernel_token": a_k,
+                                 "plain_token": a_r,
+                                 "logit_gap_kernel_minus_plain_token": gaps}
+        log("phase 12 kernel vs plain attention " + json.dumps(row))
+    del kept
+
+    # one full generate at S = 2048 under torch.profiler
+    params = next(s.params for s in eng.pool.servers if s.params is not None)
+    prompt = rng.integers(0, cfg.vocab_size, prompt_max)
+
+    def run():
+        ex.generate(arch, params, prompt, 1, 16, 16)
+    prof = profile_device(dev, run, 1, "generate")
+    log("phase 12 profile " + json.dumps({
+        "card": card, "arch": arch, "prompt": prompt_max, "c": 1, "steps": 16,
+        **prof}))
+    return counts
+
+
+def _sdpa_call(q, k, v):
+    """One PyTorch call computing flash_attention's function on the same
+    (B, S, H, hd) tensors: `scaled_dot_product_attention` on head-major
+    views, causal, GQA by `enable_gqa`; a torch without `enable_gqa` gets
+    K/V repeated to H heads outside the timed call."""
+    import torch.nn.functional as F
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    try:
+        F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                       enable_gqa=True)
+        return lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True, enable_gqa=True)
+    except TypeError:
+        g = qh.shape[1] // kh.shape[1]
+        kr, vr = (t.repeat_interleave(g, dim=1) for t in (kh, vh))
+        return lambda: F.scaled_dot_product_attention(qh, kr, vr,
+                                                      is_causal=True)
+
+
+def measure(env_timing, chain_timing, step_timing, flash_timing, errs,
+            launches, card):
     """One row per kernel at the main path's shapes. `ms` is the kernel's
-    device time per launch from torch.profiler (CUDA events around
-    back-to-back wrapper calls when the profiler shows no device time);
-    `call_ms` is the wrapper call, host work included; `plain_ms` is the
-    plain PyTorch version on the same inputs. The bound counts each input
+    device time per launch, the mean over the launches torch.profiler
+    recorded (`profiled_launches` of 20; CUDA events around back-to-back
+    wrapper calls when it recorded none); `call_ms` is the wrapper call,
+    host work included; `plain_ms` is the plain PyTorch version on the
+    same inputs. The bound counts each input
     element the function needs read once (an array it gathers from counts
     only the elements it gathers) and each output written once at the HBM
-    rate, and the matrix products' FLOPs at the fp32 rate (no single
-    PyTorch call computes any of the three functions, so `library_ms` is
-    null). `launches` is each kernel's count summed over the main-path
-    runs (phases 4, 8, 9 and 10)."""
+    rate, and the matrix products' FLOPs at the fp32 rate. No single
+    PyTorch call computes env_step or the denoisers (`library_ms` null);
+    for flash_attention it is `scaled_dot_product_attention` on the same
+    tensors, and its bound counts 4·hd FLOPs per unmasked (query, key)
+    pair. `launches` is each kernel's count summed over the main-path runs
+    (phases 4, 8, 9, 10 and 12)."""
     from repro_torch.kernels.denoiser import kernel as DK
     from repro_torch.kernels.denoiser.ref import denoiser_chain_ref, denoiser_ref
     from repro_torch.kernels.env_step import ops as EKO
+    from repro_torch.kernels.flash_attention import ops as FA
     cfg, statics, st, a, q = env_timing
     env_k = lambda: EKO.env_step_fused(cfg, statics, st, a, q)  # noqa: E731
     env_p = lambda: EKO.env_step_fused(cfg, statics, st, a, q, impl="ref")  # noqa: E731
@@ -799,37 +1069,53 @@ def measure(env_timing, chain_timing, step_timing, errs, launches, card):
                           step_timing[5])
     step_flops = 2 * inp.shape[0] * (sw1.numel() + sw2.numel() + sw3.numel())
     step_bytes = nbytes(*step_timing) + inp.shape[0] * sw3.shape[1] * 4
+    fq, fk, fv = flash_timing                   # (B, S, H, hd), (B, T, KV, hd)
+    fB, fS, fH, fhd = fq.shape
+    fT = fk.shape[1]
+    flash_k = lambda: FA.attention(fq, fk, fv, causal=True)  # noqa: E731
+    flash_p = lambda: FA.attention(fq, fk, fv, causal=True,  # noqa: E731
+                                   impl="ref")
+    pairs = sum(min(i + 1, fT) for i in range(fS))   # causal, unmasked
+    flash_flops = 4 * fB * fH * fhd * pairs
+    flash_bytes = nbytes(fq, fk, fv, fq)             # q, k, v in; o out
+    flash_lib = _sdpa_call(fq, fk, fv)
     # the launch floor: device time of a one-element kernel, and the time
     # per call of back-to-back launches of it (host launch rate)
     one = torch.zeros(1, device=x.device)
     floor_fn = lambda: one.add_(1.0)  # noqa: E731
-    floor = {"device_ms": kernel_device_ms(floor_fn, "elementwise"),
+    floor = {"device_ms": kernel_device_ms(floor_fn, "elementwise")[0],
              "call_ms": time_ms(floor_fn, 200)}
     rows = []
-    for (name, src, replaces, k_fn, p_fn, nb, flops, kname) in (
+    for (name, src, replaces, k_fn, p_fn, lib_fn, nb, flops, kname, it) in (
             ("env_step", "src/repro_torch/csrc/env_step.cu",
-             "src/repro/kernels/env_step/kernel.py:290", env_k, env_p,
-             env_bytes, 0, "env_step_kernel"),
+             "src/repro/kernels/env_step/kernel.py:290", env_k, env_p, None,
+             env_bytes, 0, "env_step_kernel", 200),
             ("denoiser_chain", "src/repro_torch/csrc/denoiser_chain.cu",
              "src/repro/kernels/denoiser/kernel.py:115", chain_k, chain_p,
-             chain_bytes, chain_flops, "chain_kernel"),
+             None, chain_bytes, chain_flops, "chain_kernel", 200),
             ("denoiser_step", "src/repro_torch/csrc/denoiser_step.cu",
-             "src/repro/kernels/denoiser/kernel.py:50", step_k, step_p,
-             step_bytes, step_flops, "denoiser_step_kernel")):
-        call_ms = time_ms(k_fn, 200)
-        dev_ms = kernel_device_ms(k_fn, kname)
-        plain_ms = time_ms(p_fn, 50)
+             "src/repro/kernels/denoiser/kernel.py:50", step_k, step_p, None,
+             step_bytes, step_flops, "denoiser_step_kernel", 200),
+            ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:83", flash_k,
+             flash_p, flash_lib, flash_bytes, flash_flops,
+             "flash_attention_kernel", 20)):
+        call_ms = time_ms(k_fn, it)
+        dev_ms, seen = kernel_device_ms(k_fn, kname)
+        plain_ms = time_ms(p_fn, max(it // 4, 5))
         t_bytes, t_ops = nb / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": errs[name],
                      "ms": call_ms if dev_ms is None else dev_ms,
                      "ms_from": "events" if dev_ms is None else "profiler",
+                     "profiled_launches": seen,
                      "call_ms": call_ms, "plain_ms": plain_ms,
                      "bound_ms": 1e3 * max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                      "bytes": nb, "flops": flops, "launch_floor": floor,
-                     "library_ms": None})
+                     "library_ms": (None if lib_fn is None
+                                    else time_ms(lib_fn, it))})
         log(f"phase 6 timing {name} [{card}]: " + json.dumps(rows[-1]))
     return rows
 
@@ -876,10 +1162,14 @@ def main():
     add_counts(launches, phase_distilled(dev, card, params8, ddpm_ms))
     phase_profile(dev, card, sampler="distilled", params=params8, phase=10)
     log(f"phases 8-10 took {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    errs["flash_attention"], flash_timing = phase_flash(dev)
+    add_counts(launches, phase_serve(dev, card, ts.actor))
+    log(f"phases 11-12 took {time.perf_counter() - t0:.3f} s")
     for name in KERNELS:
         assert launches.get(name, 0) > 0, (name, launches)
-    rows = measure(env_timing, chain_timing, step_timing, errs, launches,
-                   card)
+    rows = measure(env_timing, chain_timing, step_timing, flash_timing, errs,
+                   launches, card)
     log(card)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 """Helpers over parameter trees: nested dicts and lists of tensors (port of
-`repro/common/pytree.py`, the parts the trainers need).
+`repro/common/pytree.py`, the parts the trainers and the model zoo need).
 
 Leaves are visited in the reference's order: dict keys sorted, list and
 tuple slots in order. A NamedTuple is a node too, so a `TrainState` maps
@@ -8,6 +8,8 @@ field by field.
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, List
+
+import torch
 
 
 def _children(node):
@@ -65,3 +67,15 @@ def tree_paths(tree: Any) -> Dict[str, Any]:
             out["/".join(prefix)] = node
     walk(tree, [])
     return out
+
+
+def normal_init(generator: torch.Generator, shape, *, stddev: float = 0.02,
+                device=None, dtype=torch.float32) -> torch.Tensor:
+    """N(0, stddev^2) of `shape`, drawn in place from `generator` on
+    `device` (the reference's `normal_init`; one pass, no scaled copy)."""
+    return torch.empty(shape, dtype=dtype, device=device).normal_(
+        0.0, stddev, generator=generator)
+
+
+def param_count(tree: Any) -> int:
+    return sum(int(x.numel()) for x in tree_leaves(tree))

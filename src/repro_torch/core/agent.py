@@ -16,11 +16,11 @@ from typing import Dict
 import torch
 
 from repro_torch.common.device import resolve_device
+from repro_torch.common.pytree import normal_init
 from repro_torch.core import diffusion as DF
 from repro_torch.core.env import EnvConfig
 from repro_torch.core.networks import (attention_encode, init_mlp,
-                                       make_encoder, mlp_apply, mlp_encode,
-                                       normal_init)
+                                       make_encoder, mlp_apply, mlp_encode)
 from repro_torch.models.layers import mish
 
 VARIANTS = {
@@ -60,7 +60,7 @@ def init_actor(ecfg: EnvConfig, acfg: AgentConfig, *, generator=None,
                                     generator=gen, device=dev)
     a_dim = ecfg.action_dim
     p = {"enc": enc,
-         "sigma_head": {"w": normal_init((a_dim, a_dim), 0.01, generator=gen,
+         "sigma_head": {"w": normal_init(gen, (a_dim, a_dim), stddev=0.01,
                                          device=dev),
                         "b": torch.full((a_dim,), -2.0, device=dev)}}
     if acfg.policy == "diffusion":

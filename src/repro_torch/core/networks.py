@@ -14,18 +14,16 @@ from typing import Dict, Sequence
 
 import torch
 
+from repro_torch.common.pytree import normal_init
 from repro_torch.models.layers import mish
-
-
-def normal_init(shape, stddev: float, *, generator, device) -> torch.Tensor:
-    return stddev * torch.randn(shape, generator=generator, device=device)
 
 
 def init_mlp(dims: Sequence[int], *, generator, device) -> Dict:
     layers = []
     for a, b in zip(dims[:-1], dims[1:]):
-        layers.append({"w": normal_init((a, b), 1.0 / math.sqrt(a),
-                                        generator=generator, device=device),
+        layers.append({"w": normal_init(generator, (a, b),
+                                        stddev=1.0 / math.sqrt(a),
+                                        device=device),
                        "b": torch.zeros((b,), device=device)})
     return {"layers": layers}
 
@@ -47,8 +45,8 @@ def init_attention_encoder(n_rows: int, n_cols: int, d_attn: int = 32, *,
                            generator, device) -> Dict:
     """State matrix (n_rows, n_cols): columns are tokens of dim n_rows."""
     def w(shape, fan_in):
-        return normal_init(shape, 1.0 / math.sqrt(fan_in),
-                           generator=generator, device=device)
+        return normal_init(generator, shape, stddev=1.0 / math.sqrt(fan_in),
+                           device=device)
     return {"wq": w((n_rows, d_attn), n_rows),
             "wk": w((n_rows, d_attn), n_rows),
             "wv": w((n_rows, d_attn), n_rows),

@@ -11,7 +11,8 @@ runs, one line per result:
    (B = 256, E in {8, 12}, K = 32, l = 8, one and three models, with and
    without fault columns): exact on ints, bools and the clock;
 3. the denoiser_chain kernel against its plain version (B = 256, A = 10,
-   F in {16, 20}, H = 256; K = 10 DDPM and K = 5 DDIM coefficients);
+   F in {12, 16, 20}, H = 256; K = 10 DDPM and K = 5 DDIM coefficients;
+   F = 12 is the 4-server cell of phase 14);
 4. the main path: `batch_rollout` of the EAT actor (random weights from a
    seed, the AgentConfig defaults) with samplers "ddpm" and "ddim:5" on the
    cells paper-8srv and paper-12srv (K = 32 tasks, B = 256 envs, a whole
@@ -21,7 +22,7 @@ runs, one line per result:
    EAT teacher-forced, EAT closed loop on aggregate metrics;
 6. a timing row per kernel: device and call time, plain-version time,
    bound and (flash_attention) `scaled_dot_product_attention`'s time, at
-   the main path's shapes;
+   the main path's shapes (ssm_scan at Jamba's 2048-token prefill);
 7. the denoiser_step kernel against its plain version (A = 10, H = 256,
    F in {16, 20}, B in {256, 300, 4096}, and a 1-D input);
 8. SAC training at full width on paper-8srv (`core.sac.train`: a uniform
@@ -45,8 +46,19 @@ runs, one line per result:
    decision from phase 8's actor on `engine.observe()`, every prefill layer
    a flash_attention launch; per request the prefill and decode times, the
    QoS summary, peak device memory, the served logits and tokens against
-   the plain attention on three requests of different c, and a profiled
-   generate at S = 2048;
+   the plain attention on three requests of different c, each compared
+   as soon as it is served, and a profiled generate at S = 2048;
+13. the ssm_scan kernel against its plain version: Jamba's prefill
+   (B = 1, S = 2048, I = 8192, N = 16) from a zero and a random state,
+   S and I ragged, S = 1, N = 4, and Jamba's prefill in bf16;
+14. the hybrid served: phase 12's function on a 4-server engine serving
+   one Jamba period without experts at full width
+   (`jamba-v0.1-52b-8l-dense`: 8 layers, 7 Mamba + 1 attention, 2.7 B
+   parameters, fp32), 16 requests of a trace at 0.05 tasks/s, every
+   decision from a seeded random EAT actor for 4 servers, every Mamba
+   prefill layer an ssm_scan launch and the attention layer a
+   flash_attention launch; the logits and tokens against the plain scan
+   and attention on two requests of different prompt length;
 then the phase 6 rows, a `kernels` JSON line after the card's
 `nvidia-smi` line, and
 `{"ok": true, "device": {...}}` as the last line.
@@ -57,6 +69,8 @@ Without CUDA it exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -76,14 +90,40 @@ CHAIN_ATOL = 1e-4     # ~10x the fp32-vs-fp64 gap of the plain chain
 STEP_ATOL = 1e-5      # one MLP pass: fp32 sums in another order, a tanh
 ENV_ATOL = 1e-5       # quality / obs / reward (exp and a reordered sum)
 LOSS_RTOL = 1e-4      # one SAC update, card against CPU
-# served prefill logits, kernel against plain attention, relative to the
-# largest |logit|: each of the 22 layers' attention differs by ~1e-6 of its
-# unit-scale output (phase 11), and fp32 sums over d_model = 2048 add
-# ~1e-6 more per layer; 22 layers compound that to ~1e-5 at most. 1e-3
-# leaves that 100x of room while a wrong mask, GQA map or tile edge moves
-# the logits by O(1).
+# served prefill logits, kernels against the plain attention and scan,
+# relative to the largest |logit|: each attention layer differs by ~1e-6 of
+# its unit-scale output (phase 11), each scan by ~1e-7 of max|y| (phase
+# 13), and fp32 sums over d_model add ~1e-6 more per layer; tinyllama's 22
+# layers or a Jamba period's 8 compound that to ~1e-5 at most. 1e-3 leaves
+# that 100x of room while a wrong mask, GQA map, tile edge or state carry
+# moves the logits by O(1).
 LOGIT_RTOL = 1e-3
-KERNELS = ("env_step", "denoiser_chain", "denoiser_step", "flash_attention")
+KERNELS = ("env_step", "denoiser_chain", "denoiser_step", "flash_attention",
+           "ssm_scan")
+# exponentials per second on the special-function units: 16 per clock per
+# SM (Hopper white paper: 4 per SM sub-partition), 132 SMs, 1.98 GHz boost
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
+# ssm_scan against its plain version, relative to max(1, max|y|): fp32 at
+# tests/test_kernels.py's 2e-5 (the same recurrence, y's sum over N in
+# another order); bf16 at 1e-2: the plain version forms dt*x in bf16 (as
+# the reference does, 2^-9 relative) where the kernel keeps it in fp32, and
+# the two y round to bf16 apart by at most one ulp (2^-8 relative)
+SSM_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+# (case, B, S, I, N, dtype, random h0, dt_rank: B and C split from a
+# (B, S, dt_rank + 2N) tensor as x_proj gives them, or 0 for contiguous)
+SSM_CASES = (
+    ("jamba prefill, zero h0", 1, 2048, 8192, 16, torch.float32, False, 0),
+    ("jamba prefill, random h0", 1, 2048, 8192, 16, torch.float32, True, 0),
+    ("S and I ragged", 2, 300, 520, 16, torch.float32, True, 0),
+    ("one step", 1, 1, 64, 16, torch.float32, True, 0),
+    ("N = 4", 1, 7, 16, 4, torch.float32, True, 0),
+    ("jamba prefill bf16", 1, 2048, 8192, 16, torch.bfloat16, True, 0),
+    ("jamba prefill, B and C split from x_proj", 1, 2048, 8192, 16,
+     torch.float32, True, 256),
+)
+# phase 14's config: one period of Jamba (7 Mamba + 1 attention layer) at
+# full width with dense FFNs, registered in the port's registry at run time
+JAMBA_CUT = "jamba-v0.1-52b-8l-dense"
 # flash_attention against its plain version: the tolerances of
 # tests/test_kernels.py (fp32 2e-5; bf16 3e-2 against fp32 attention of the
 # same bf16 inputs), rtol = atol
@@ -209,9 +249,10 @@ def _wrappers():
     from repro_torch.kernels.denoiser import kernel as DK
     from repro_torch.kernels.env_step import kernel as EK
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.ssm_scan import kernel as SK
     return {"env_step": EK.env_step, "denoiser_chain": DK.denoiser_chain,
             "denoiser_step": DK.denoiser_step,
-            "flash_attention": FK.flash_attention}
+            "flash_attention": FK.flash_attention, "ssm_scan": SK.ssm_scan}
 
 
 def reset_counts():
@@ -227,6 +268,16 @@ def read_counts():
 def add_counts(total, counts):
     for k, v in counts.items():
         total[k] = total.get(k, 0) + v
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside (a kernel held to its plain version in the middle of
+    a main-path run) leave the counts as they were."""
+    saved = read_counts()
+    yield
+    for name, fn in _wrappers().items():
+        fn.launches = saved[name]
 
 
 # ----------------------------------------------------------------- phases
@@ -290,9 +341,9 @@ def phase_env_step(dev, B=256, K=32, l=8, Es=(8, 12), models=(1, 3),
     return worst, timing
 
 
-def phase_chain(dev, B=256, A=10, Fs=(16, 20), H=256, T=10):
+def phase_chain(dev, B=256, A=10, Fs=(16, 20, 12), H=256, T=10):
     """denoiser_chain kernel vs plain version; returns (max error, timing
-    inputs at the paper-8srv DDPM main-path shape)."""
+    inputs at the paper-8srv DDPM main-path shape, F = Fs[0])."""
     from repro_torch.actors import samplers as SMP
     from repro_torch.core import diffusion as DF
     from repro_torch.kernels.denoiser import kernel as DK
@@ -834,6 +885,53 @@ def phase_flash(dev, cases=FA_CASES):
     return worst["float32"], timing
 
 
+def phase_ssm(dev, cases=SSM_CASES):
+    """ssm_scan kernel vs plain version (`impl="ref"`) through
+    `selective_scan`, the error of y and of hT relative to max(1, max|.|)
+    of the plain version's. A case with dt_rank > 0 takes B and C as splits
+    of one (B, S, dt_rank + 2N) tensor, strided views as `_mamba_inner`
+    gives them on the main path; returns (max fp32 error of y, timing inputs at
+    Jamba's prefill shape from a random state)."""
+    from repro_torch.kernels.ssm_scan import ops as SS
+    from repro_torch.models.layers import softplus
+    g = torch.Generator(device=dev).manual_seed(13)
+    worst, timing = {}, None
+    for (case, B, S, I, N, dtype, rand_h0, dt_rank) in cases:
+        rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)  # noqa: E731
+        dt, a = softplus(rnd(B, S, I)), -torch.exp(rnd(I, N))
+        if dt_rank:
+            _, bm, cm = torch.split(rnd(B, S, dt_rank + 2 * N),
+                                    [dt_rank, N, N], dim=-1)
+            assert bm.stride(1) == dt_rank + 2 * N, bm.stride()
+            x = rnd(B, S, I)
+        else:
+            bm, cm, x = rnd(B, S, N), rnd(B, S, N), rnd(B, S, I)
+        h0 = rnd(B, I, N) if rand_h0 else None
+        args = [t.to(dtype) for t in (dt, a, bm, cm, x)]
+        got = SS.selective_scan(*args, h0)
+        want = SS.selective_scan(*args, h0, impl="ref")
+        sync(dev)
+        tol = SSM_TOL[dtype]
+        errs = {}
+        for name, g_, w_ in (("y", *[r[0] for r in (got, want)]),
+                             ("hT", *[r[1] for r in (got, want)])):
+            assert g_.dtype == w_.dtype and g_.shape == w_.shape, (case, name)
+            assert bool(torch.isfinite(g_).all()), (case, name)
+            err = (g_.float() - w_.float()).abs().max().item()
+            scale = max(1.0, w_.float().abs().max().item())
+            assert err <= tol * scale, f"ssm_scan {case} {name}: {err} > {tol} x {scale}"
+            errs[name] = {"max_abs_err": err, "scale": scale}
+        dname = str(dtype).replace("torch.", "")
+        worst[dname] = max(worst.get(dname, 0.0), errs["y"]["max_abs_err"])
+        if case == "jamba prefill, random h0":
+            timing = (*args, h0)
+        log(f"phase 13 ssm_scan {case}: B={B} S={S} I={I} N={N} {dname}; "
+            f"tol {tol} x scale; " + json.dumps(errs))
+    log(f"phase 13 ssm_scan kernel ~ plain on {len(cases)} cases: max abs "
+        f"err of y {json.dumps(worst)}")
+    return worst["float32"], timing
+
+
 class SyncTimer:
     """A tracer for the executor's `tracer=` hook: every span waits for the
     device at its start and end and records (name, args, seconds) on the
@@ -863,35 +961,76 @@ def _logits_at(ex, arch, params, req, tokens, impl):
     return logits[0, -1, :model.cfg.vocab_size]
 
 
-def phase_serve(dev, card, actor, n_requests=16, max_decisions=4096,
-                arch="tinyllama-1.1b", reduced=False, prompt_max=2048):
-    """The serving main path at tinyllama-1.1b's full width: a
-    ServingEngine of 8 servers in virtual time, fed the first n_requests
-    tasks of a paper-8srv trace (prompts of 256-2048 tokens, 16 new tokens
-    each) as the clock reaches them, every decision from the EAT actor
-    (phase 8's, sampler "ddpm") on engine.observe(), every launch count
-    set to 0 just before; weight loads, prefill and decode are timed on
-    the synchronised host clock. Then the kernel path against the plain
-    attention on three served requests of different c, and a profiled
-    generate at S = 2048. `reduced` and `prompt_max` shrink it for a rehearsal on the
-    CPU. Returns the launches of the served run."""
+def _compare_served(ex, arch, params, req, phase):
+    """A served request's prefill logits and greedy tokens, kernel path
+    against the plain attention and scan on the same params; logs the row."""
+    lk = _logits_at(ex, arch, params, req, [], "auto")
+    lr = _logits_at(ex, arch, params, req, [], "ref")
+    err = (lk - lr).abs().max().item()
+    scale = max(1.0, lr.abs().max().item())
+    assert err <= LOGIT_RTOL * scale, (req.rid, err, scale)
+    toks_ref = ex.generate(arch, params, req.prompt, req.patches, req.steps,
+                           req.max_new_tokens, impl="ref")
+    row = {"rid": req.rid, "c": req.patches, "prompt": len(req.prompt),
+           "steps": req.steps, "max_abs_logit_err": err,
+           "max_abs_logit": scale, "tol": LOGIT_RTOL * scale,
+           "tokens_equal": bool(np.array_equal(req.tokens, toks_ref))}
+    if not row["tokens_equal"]:
+        i = int(np.argmax(req.tokens != toks_ref))
+        a_k, a_r = int(req.tokens[i]), int(toks_ref[i])
+        gaps = {}
+        for impl in ("auto", "ref"):
+            lg = _logits_at(ex, arch, params, req, req.tokens[:i], impl)
+            gaps[impl] = (lg[a_k] - lg[a_r]).item()
+        row["first_fork"] = {"index": i, "kernel_token": a_k,
+                             "plain_token": a_r,
+                             "logit_gap_kernel_minus_plain_token": gaps}
+    log(f"phase {phase} kernel vs plain " + json.dumps(row))
+
+
+def phase_serve(dev, card, actor, *, phase, arch, num_servers, rate,
+                n_compare, n_requests=16, max_decisions=4096,
+                reduced=False, prompt_max=2048):
+    """A serving main path: a ServingEngine of `num_servers` servers
+    serving `arch` in virtual time, fed the first n_requests tasks of a
+    trace at `rate` tasks/s on that many servers (prompts of
+    prompt_max/8 - prompt_max tokens, 16 new tokens each) as the clock
+    reaches them, every decision from the EAT actor `actor` (sampler
+    "ddpm") on engine.observe(), every launch count set to 0 just before;
+    weight loads, prefill and decode are timed on the synchronised host
+    clock. The launch counts must be what `period_spec` gives: one
+    flash_attention launch per attention layer and one ssm_scan launch per
+    Mamba layer of each served prefill, one chain launch per decision.
+    `n_compare` served requests (the first of each new c where the
+    prefill is chunked, since c then changes its shapes, else the first of
+    each prompt length a quarter of prompt_max from those compared) are
+    held to the plain attention and scan as soon as they are served, before
+    a later load can drop their weights; those launches and that time are
+    left out of the run's. Then a profiled generate at
+    S = prompt_max. `reduced` and `prompt_max` shrink it for a rehearsal
+    on the CPU. Returns (the launches of the served run, requests
+    served)."""
     from repro_torch.actors.policies import actor_policy
     from repro_torch.common.pytree import param_count
     from repro_torch.core import agent as AG
     from repro_torch.core.workload import TraceConfig, make_trace
+    from repro_torch.models.lm import n_periods, period_spec
     from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving.executor import chunkable
     from repro_torch.telemetry.trace import NULL_TRACER
-    ecfg, acfg = cell_env(8), AG.AgentConfig()
+    ecfg, acfg = cell_env(num_servers), AG.AgentConfig()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    eng = ServingEngine(num_servers=8, archs=[arch], queue_window=8,
-                        reduced=reduced, time_dilation=1.0, s_min=4,
-                        s_max=32, device=dev)
-    cfg = eng.executor.model(arch).cfg
+    eng = ServingEngine(num_servers=num_servers, archs=[arch],
+                        queue_window=8, reduced=reduced, time_dilation=1.0,
+                        s_min=4, s_max=32, device=dev)
+    ex = eng.executor
+    cfg = ex.model(arch).cfg
     assert eng.observe().shape == ecfg.obs_shape, eng.observe().shape
     gen = torch.Generator(device=dev).manual_seed(12)
-    tr = make_trace(TraceConfig(num_tasks=32, arrival_rate=0.1,
-                                max_servers=8), generator=gen, device=dev)
+    tr = make_trace(TraceConfig(num_tasks=32, arrival_rate=rate,
+                                max_servers=num_servers), generator=gen,
+                    device=dev)
     arrive = tr["arr_time"][:n_requests].tolist()
     cs = tr["c"][:n_requests].tolist()
     rng = np.random.default_rng(12)
@@ -902,23 +1041,39 @@ def phase_serve(dev, card, actor, n_requests=16, max_decisions=4096,
                        max_new_tokens=16) for i in range(n_requests)]
     policy = actor_policy(ecfg, acfg, sampler="ddpm", device=dev)
     timer = SyncTimer(dev)
-    eng.executor.tracer = timer
-    kept = {}                 # c -> (request, the gang leader's params)
+    ex.tracer = timer
+    compared = []             # the requests held to the plain versions
+    compare_s = []            # seconds spent on them, left out of wall_s
     loads = []                # seconds of each weight load since the last
-    serve, load = eng._generate, eng._load
 
-    def generate_and_keep(req, steps, servers):
-        serve(req, steps, servers)
-        if req.patches not in kept and len(kept) < 3:
-            kept[req.patches] = (req, servers[0].params)
+    def wanted(req):
+        if len(compared) >= n_compare:
+            return False
+        if chunkable(cfg):        # c changes the chunked prefill's shapes
+            return all(r.patches != req.patches for r in compared)
+        return all(abs(len(r.prompt) - len(req.prompt)) >= prompt_max // 4
+                   for r in compared)
+
+    def generate_and_compare(req, steps, servers):
+        eng.__class__._generate(eng, req, steps, servers)
+        if wanted(req):
+            compared.append(req)
+            sync(dev)
+            t = time.perf_counter()
+            ex.tracer = NULL_TRACER
+            with uncounted():
+                _compare_served(ex, arch, servers[0].params, req, phase)
+            ex.tracer = timer
+            sync(dev)
+            compare_s.append(time.perf_counter() - t)
 
     def timed_load(server, arch_):
         sync(dev)
         t = time.perf_counter()
-        load(server, arch_)
+        eng.__class__._load(eng, server, arch_)
         sync(dev)
         loads.append(time.perf_counter() - t)
-    eng._generate, eng._load = generate_and_keep, timed_load
+    eng._generate, eng._load = generate_and_compare, timed_load
     rows, decisions = [], 0
     sync(dev)
     reset_counts()
@@ -939,9 +1094,10 @@ def phase_serve(dev, card, actor, n_requests=16, max_decisions=4096,
                          "prefill_ms": 1e3 * pre_s,
                          "decode_ms_per_token": 1e3 * dec_s / req.steps})
             loads.clear()
-            log("phase 12 served " + json.dumps(rows[-1]))
+            log(f"phase {phase} served " + json.dumps(rows[-1]))
     sync(dev)
-    secs = time.perf_counter() - t0
+    secs = time.perf_counter() - t0 - sum(compare_s)
+    del eng._generate, eng._load          # no cycle keeps the weights alive
     counts = read_counts()
     served = len(eng.done)
     assert served == n_requests and not pending and not eng.queue, \
@@ -949,59 +1105,74 @@ def phase_serve(dev, card, actor, n_requests=16, max_decisions=4096,
     for r in eng.done:
         assert r.tokens is not None and len(r.tokens) == r.steps
         assert ((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all()
-    assert counts["flash_attention"] == cfg.num_layers * served, counts
-    assert counts["denoiser_chain"] == decisions, counts
-    assert counts["env_step"] == 0 and counts["denoiser_step"] == 0, counts
+    assert len(compared) == n_compare, [len(r.prompt) for r in compared]
+    spec = period_spec(cfg)
+    per_prefill = {kind: n_periods(cfg) * sum(m == kind for m, _ in spec)
+                   for kind in ("attn", "mamba")}
+    want = {"env_step": 0, "denoiser_step": 0, "denoiser_chain": decisions,
+            "flash_attention": per_prefill["attn"] * served,
+            "ssm_scan": per_prefill["mamba"] * served}
+    assert counts == want, (counts, want)
     qos = eng.qos_summary()
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else None)
-    log("phase 12 serve " + json.dumps({
-        "card": card, "arch": arch, "params": param_count(next(
-            s.params for s in eng.pool.servers if s.params is not None)),
-        "servers": 8, "requests": n_requests,
-        "decisions": decisions, "wall_s": secs, "launches": counts,
-        "flash_attention_launches": counts["flash_attention"],
+    params = next(s.params for s in eng.pool.servers if s.params is not None)
+    log(f"phase {phase} serve " + json.dumps({
+        "card": card, "arch": arch, "params": param_count(params),
+        "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "servers": num_servers, "trace_rate": rate, "requests": n_requests,
+        "decisions": decisions, "wall_s": secs,
+        "compare_s": sum(compare_s), "launches": counts,
+        "launches_per_request": {k: counts[k] / served for k in
+                                 ("flash_attention", "ssm_scan")},
+        "weight_loads": eng.pool.load_count,
         "peak_device_bytes": peak, "qos_summary": qos}))
 
-    # the kernel path against the plain attention, same params and prompts
-    ex = eng.executor
-    ex.tracer = NULL_TRACER          # no syncs of the timer from here on
-    for c, (req, params) in sorted(kept.items()):
-        lk = _logits_at(ex, arch, params, req, [], "auto")
-        lr = _logits_at(ex, arch, params, req, [], "ref")
-        err = (lk - lr).abs().max().item()
-        scale = max(1.0, lr.abs().max().item())
-        assert err <= LOGIT_RTOL * scale, (c, err, scale)
-        toks_ref = ex.generate(arch, params, req.prompt, req.patches,
-                               req.steps, req.max_new_tokens, impl="ref")
-        row = {"rid": req.rid, "c": c, "prompt": len(req.prompt),
-               "steps": req.steps, "max_abs_logit_err": err,
-               "max_abs_logit": scale, "tol": LOGIT_RTOL * scale,
-               "tokens_equal": bool(np.array_equal(req.tokens, toks_ref))}
-        if not row["tokens_equal"]:
-            i = int(np.argmax(req.tokens != toks_ref))
-            a_k, a_r = int(req.tokens[i]), int(toks_ref[i])
-            gaps = {}
-            for impl in ("auto", "ref"):
-                lg = _logits_at(ex, arch, params, req, req.tokens[:i], impl)
-                gaps[impl] = (lg[a_k] - lg[a_r]).item()
-            row["first_fork"] = {"index": i, "kernel_token": a_k,
-                                 "plain_token": a_r,
-                                 "logit_gap_kernel_minus_plain_token": gaps}
-        log("phase 12 kernel vs plain attention " + json.dumps(row))
-    del kept
-
-    # one full generate at S = 2048 under torch.profiler
-    params = next(s.params for s in eng.pool.servers if s.params is not None)
+    # one full generate at S = prompt_max under torch.profiler
     prompt = rng.integers(0, cfg.vocab_size, prompt_max)
+    ex.tracer = NULL_TRACER
 
     def run():
         ex.generate(arch, params, prompt, 1, 16, 16)
-    prof = profile_device(dev, run, 1, "generate")
-    log("phase 12 profile " + json.dumps({
+    with uncounted():
+        prof = profile_device(dev, run, 1, "generate")
+    log(f"phase {phase} profile " + json.dumps({
         "card": card, "arch": arch, "prompt": prompt_max, "c": 1, "steps": 16,
         **prof}))
-    return counts
+    return counts, served
+
+
+def phase_serve_tinyllama(dev, card, actor, **kw):
+    """Phase 12: tinyllama-1.1b at full width on 8 servers, the paper-8srv
+    trace (0.1 tasks/s), phase 8's actor deciding; three requests of
+    different c held to the plain attention."""
+    return phase_serve(dev, card, actor, phase=12, arch="tinyllama-1.1b",
+                       num_servers=8, rate=0.1, n_compare=3, **kw)
+
+
+def register_jamba_cut():
+    """Register JAMBA_CUT in the port's registry: jamba-v0.1-52b with its
+    depth cut to one period (8 layers) and no experts."""
+    from repro_torch.common.config import get_config, register
+    register(JAMBA_CUT)(lambda: dataclasses.replace(
+        get_config("jamba-v0.1-52b"), name=JAMBA_CUT, num_layers=8,
+        moe=None))
+
+
+def phase_serve_jamba(dev, card, actor=None, **kw):
+    """Phase 14, cell serve-jamba8l-4srv: JAMBA_CUT at full width on 4
+    servers, the first 16 tasks of a trace at 0.05 tasks/s (paper-8srv's
+    rate per server, c in {1, 2, 4}), decisions from an EAT actor with
+    seeded random weights for 4 servers (`actor=None`); two requests of
+    different prompt length held to the plain scan and attention."""
+    from repro_torch.core import agent as AG
+    register_jamba_cut()
+    if actor is None:
+        actor = AG.init_actor(
+            cell_env(4), AG.AgentConfig(),
+            generator=torch.Generator(device=dev).manual_seed(14), device=dev)
+    return phase_serve(dev, card, actor, phase=14, arch=JAMBA_CUT,
+                       num_servers=4, rate=0.05, n_compare=2, **kw)
 
 
 def _sdpa_call(q, k, v):
@@ -1023,8 +1194,8 @@ def _sdpa_call(q, k, v):
                                                       is_causal=True)
 
 
-def measure(env_timing, chain_timing, step_timing, flash_timing, errs,
-            launches, card):
+def measure(env_timing, chain_timing, step_timing, flash_timing, ssm_timing,
+            errs, launches, per_request, card):
     """One row per kernel at the main path's shapes. `ms` is the kernel's
     device time per launch, the mean over the launches torch.profiler
     recorded (`profiled_launches` of 20; CUDA events around back-to-back
@@ -1037,12 +1208,17 @@ def measure(env_timing, chain_timing, step_timing, flash_timing, errs,
     PyTorch call computes env_step or the denoisers (`library_ms` null);
     for flash_attention it is `scaled_dot_product_attention` on the same
     tensors, and its bound counts 4·hd FLOPs per unmasked (query, key)
-    pair. `launches` is each kernel's count summed over the main-path runs
-    (phases 4, 8, 9, 10 and 12)."""
+    pair. ssm_scan's operations are its S·I·N exponentials at the SFU rate
+    and its 6 fp32 operations per state and step (`bound_terms_ms` gives
+    each term); no single PyTorch call computes it. `launches` is each
+    kernel's count summed over the main-path runs (phases 4, 8, 9, 10, 12
+    and 14), `launches_per_request` a serving kernel's per served request
+    in phases 12 and 14."""
     from repro_torch.kernels.denoiser import kernel as DK
     from repro_torch.kernels.denoiser.ref import denoiser_chain_ref, denoiser_ref
     from repro_torch.kernels.env_step import ops as EKO
     from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.ssm_scan import ops as SS
     cfg, statics, st, a, q = env_timing
     env_k = lambda: EKO.env_step_fused(cfg, statics, st, a, q)  # noqa: E731
     env_p = lambda: EKO.env_step_fused(cfg, statics, st, a, q, impl="ref")  # noqa: E731
@@ -1085,34 +1261,56 @@ def measure(env_timing, chain_timing, step_timing, flash_timing, errs,
     floor_fn = lambda: one.add_(1.0)  # noqa: E731
     floor = {"device_ms": kernel_device_ms(floor_fn, "elementwise")[0],
              "call_ms": time_ms(floor_fn, 200)}
+    (dt, sa, sbm, scm, sx, sh0) = ssm_timing
+    sB, sS, sI = dt.shape
+    sN = sa.shape[1]
+    ssm_k = lambda: SS.selective_scan(dt, sa, sbm, scm, sx, sh0)  # noqa: E731
+    ssm_p = lambda: SS.selective_scan(dt, sa, sbm, scm, sx, sh0,  # noqa: E731
+                                      impl="ref")
+    states = sB * sS * sI * sN                      # one exp per state and step
+    ssm_flops = 6 * states
+    # dt, A, B, C, x and h0 in; y and hT out
+    ssm_bytes = nbytes(dt, sa, sbm, scm, sx, sh0, dt, sh0)
+    fp32 = lambda f: {"fp32_operations": f / FP32_FLOP_PER_S}  # noqa: E731
     rows = []
-    for (name, src, replaces, k_fn, p_fn, lib_fn, nb, flops, kname, it) in (
+    for (name, src, replaces, k_fn, p_fn, lib_fn, nb, flops, ops_s, kname,
+         it) in (
             ("env_step", "src/repro_torch/csrc/env_step.cu",
              "src/repro/kernels/env_step/kernel.py:290", env_k, env_p, None,
-             env_bytes, 0, "env_step_kernel", 200),
+             env_bytes, 0, fp32(0), "env_step_kernel", 200),
             ("denoiser_chain", "src/repro_torch/csrc/denoiser_chain.cu",
              "src/repro/kernels/denoiser/kernel.py:115", chain_k, chain_p,
-             None, chain_bytes, chain_flops, "chain_kernel", 200),
+             None, chain_bytes, chain_flops, fp32(chain_flops),
+             "chain_kernel", 200),
             ("denoiser_step", "src/repro_torch/csrc/denoiser_step.cu",
              "src/repro/kernels/denoiser/kernel.py:50", step_k, step_p, None,
-             step_bytes, step_flops, "denoiser_step_kernel", 200),
+             step_bytes, step_flops, fp32(step_flops),
+             "denoiser_step_kernel", 200),
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:83", flash_k,
-             flash_p, flash_lib, flash_bytes, flash_flops,
-             "flash_attention_kernel", 20)):
+             flash_p, flash_lib, flash_bytes, flash_flops, fp32(flash_flops),
+             "flash_attention_kernel", 20),
+            ("ssm_scan", "src/repro_torch/csrc/ssm_scan.cu",
+             "src/repro/kernels/ssm_scan/kernel.py:61", ssm_k, ssm_p, None,
+             ssm_bytes, ssm_flops,
+             {"exponentials": states / SFU_EXP_PER_S, **fp32(ssm_flops)},
+             "ssm_scan_kernel", 20)):
         call_ms = time_ms(k_fn, it)
         dev_ms, seen = kernel_device_ms(k_fn, kname)
         plain_ms = time_ms(p_fn, max(it // 4, 5))
-        t_bytes, t_ops = nb / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+        terms = {"bytes": nb / HBM_BYTES_PER_S, **ops_s}
+        top = max(terms, key=terms.get)
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
+                     "launches_per_request": per_request.get(name),
                      "max_abs_err": errs[name],
                      "ms": call_ms if dev_ms is None else dev_ms,
                      "ms_from": "events" if dev_ms is None else "profiler",
                      "profiled_launches": seen,
                      "call_ms": call_ms, "plain_ms": plain_ms,
-                     "bound_ms": 1e3 * max(t_bytes, t_ops),
-                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "bound_ms": 1e3 * terms[top],
+                     "bound_by": "bytes" if top == "bytes" else "operations",
+                     "bound_terms_ms": {k: 1e3 * v for k, v in terms.items()},
                      "bytes": nb, "flops": flops, "launch_floor": floor,
                      "library_ms": (None if lib_fn is None
                                     else time_ms(lib_fn, it))})
@@ -1164,12 +1362,26 @@ def main():
     log(f"phases 8-10 took {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
     errs["flash_attention"], flash_timing = phase_flash(dev)
-    add_counts(launches, phase_serve(dev, card, ts.actor))
+    per_request = {}
+
+    def serve(phase, run, actor):
+        counts, served = run(dev, card, actor)
+        add_counts(launches, counts)
+        for name in ("flash_attention", "ssm_scan"):
+            per_request.setdefault(name, {})[f"phase {phase}"] = \
+                counts[name] / served
+    serve(12, phase_serve_tinyllama, ts.actor)
     log(f"phases 11-12 took {time.perf_counter() - t0:.3f} s")
+    gc.collect()              # phase 12's engine and weights are gone, so
+    torch.cuda.empty_cache()  # phase 14's peak memory is its own
+    t0 = time.perf_counter()
+    errs["ssm_scan"], ssm_timing = phase_ssm(dev)
+    serve(14, phase_serve_jamba, None)
+    log(f"phases 13-14 took {time.perf_counter() - t0:.3f} s")
     for name in KERNELS:
         assert launches.get(name, 0) > 0, (name, launches)
-    rows = measure(env_timing, chain_timing, step_timing, flash_timing, errs,
-                   launches, card)
+    rows = measure(env_timing, chain_timing, step_timing, flash_timing,
+                   ssm_timing, errs, launches, per_request, card)
     log(card)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -25,7 +25,7 @@ BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: per-kernel flags; env_step's clock must round like the reference, so
 #: nvcc may not contract a multiply and an add into one FMA there
 EXTRA_FLAGS = {"env_step": ("-fmad=false",), "denoiser_chain": (),
-               "denoiser_step": (), "flash_attention": ()}
+               "denoiser_step": (), "flash_attention": (), "ssm_scan": ()}
 
 
 def nvcc_path() -> str:

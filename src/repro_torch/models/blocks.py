@@ -1,18 +1,19 @@
-"""The attention block with train, prefill and decode paths (port of
-`repro/models/blocks.py`, the attention block only; cross-attention, MoE,
-Mamba, mLSTM and sLSTM are ROADMAP Queue 1 item 13).
+"""The attention and Mamba blocks with train, prefill and decode paths
+(port of `repro/models/blocks.py`, those two blocks; cross-attention, MoE,
+mLSTM and sLSTM are ROADMAP Queue 1 item 13).
 
-    init_attn(generator, cfg)                 -> params subtree
-    attn_train(p, cfg, x)                     -> y            (full sequence)
-    attn_prefill(p, cfg, x, cache)            -> y, cache'    (fill the cache)
-    attn_decode(p, cfg, x, cache, pos)        -> y, cache'    (one token)
+    init_<blk>(generator, cfg, ...)           -> params subtree
+    <blk>_train(p, cfg, x, ...)               -> y            (full sequence)
+    <blk>_prefill(p, cfg, x, cache, ...)      -> y, cache'    (fill the cache)
+    <blk>_decode(p, cfg, x, cache, ...)       -> y, cache'    (one token)
 
-``x`` is (B, S, d_model); the block is residual-free (the LM adds residuals
+``x`` is (B, S, d_model); blocks are residual-free (the LM adds residuals
 and norms). Full-sequence attention goes through
-`kernels.flash_attention.ops.attention`: on the card every prefill and
-every training forward launches the hand-written kernel. Caches are dicts
-of (B, T, KV, hd) tensors, written in place (the reference returns updated
-copies; the port saves the copy of a whole cache per layer and token).
+`kernels.flash_attention.ops.attention` and the Mamba scan through
+`kernels.ssm_scan.ops.selective_scan`: on the card every prefill and every
+training forward launches the hand-written kernels. Caches are dicts of
+tensors, written in place (the reference returns updated copies; the port
+saves the copy of a whole cache per layer and token).
 """
 from __future__ import annotations
 
@@ -21,10 +22,14 @@ from typing import Dict
 
 import torch
 
-from repro_torch.common.config import ArchConfig
+import torch.nn.functional as F
+
+from repro_torch.common.config import ArchConfig, SSMConfig
+from repro_torch.common.pytree import normal_init
 from repro_torch.kernels.flash_attention import ops as FA
+from repro_torch.kernels.ssm_scan import ops as SS
 from repro_torch.models import attention as attn_lib
-from repro_torch.models.layers import apply_rope, init_linear, linear
+from repro_torch.models.layers import apply_rope, init_linear, linear, softplus
 
 
 def init_attn(generator, cfg: ArchConfig, *, lead=(), device=None):
@@ -110,3 +115,143 @@ def attn_decode(p, cfg: ArchConfig, x, cache: Dict, pos: int, *,
     o = attn_lib.decode_attention(q, cache["k"], cache["v"], pos + 1,
                                   window=window, ring=ring)
     return linear(p["wo"], o.reshape(b, 1, -1)), cache
+
+
+# ======================================================================
+# Mamba selective-SSM block
+def _dt_rank(cfg: ArchConfig, scfg: SSMConfig) -> int:
+    return scfg.dt_rank or max(1, math.ceil(cfg.d_model / 16))
+
+
+def init_mamba(generator, cfg: ArchConfig, scfg: SSMConfig, *, lead=(),
+               device=None):
+    """The reference's tree, shapes and initialisers: S4D-real A_log, the
+    inverse-softplus dt bias of a log-uniform draw in [1e-3, 1e-1], conv_w
+    with std 0.3, out_proj with std 0.02 / sqrt(2 L), D ones; drawn in the
+    reference's order. `lead` prepends the LM's stacked-period axis."""
+    lead = tuple(lead)
+    d = cfg.d_model
+    inner = scfg.expand * d
+    dt_rank = _dt_rank(cfg, scfg)
+    n = scfg.state_dim
+    kw = dict(lead=lead, device=device)
+    f32 = torch.float32
+    in_proj = init_linear(generator, d, 2 * inner, **kw)
+    conv_w = normal_init(generator, lead + (scfg.conv_width, inner),
+                         stddev=0.3, device=device)
+    x_proj = init_linear(generator, inner, dt_rank + 2 * n, **kw)
+    dt_w = normal_init(generator, lead + (dt_rank, inner),
+                       stddev=dt_rank ** -0.5, device=device)
+    u = torch.empty(lead + (inner,), dtype=f32, device=device).uniform_(
+        math.log(1e-3), math.log(1e-1), generator=generator)
+    a = torch.arange(1, n + 1, dtype=f32, device=device).expand(
+        lead + (inner, n))
+    return {
+        "in_proj": in_proj,
+        "conv_w": conv_w,
+        "conv_b": torch.zeros(lead + (inner,), dtype=f32, device=device),
+        "x_proj": x_proj,
+        "dt_proj": {"w": dt_w,
+                    "b": torch.log(torch.exp(torch.exp(u)) - 1.0 + 1e-9)},
+        "A_log": torch.log(a),
+        "D": torch.ones(lead + (inner,), dtype=f32, device=device),
+        "out_proj": init_linear(generator, inner, d,
+                                stddev=0.02 / math.sqrt(2 * cfg.num_layers),
+                                **kw),
+    }
+
+
+def _mamba_conv(p, xi):
+    """Causal depthwise conv over time, as the reference writes it: a loop
+    of shifted multiply-adds (not `F.conv1d`, which cuDNN runs in TF32 by
+    default). xi: (B, S, inner)."""
+    w = p["conv_w"].to(xi.dtype)                               # (W, inner)
+    width = w.shape[0]
+    xp = F.pad(xi, (0, 0, width - 1, 0))
+    out = torch.zeros_like(xi)
+    for i in range(width):
+        out = out + xp[:, i:i + xi.shape[1]] * w[i]
+    return out + p["conv_b"].to(xi.dtype)
+
+
+def _mamba_inner(p, xi_conv, dt_rank: int, n: int):
+    """The post-conv computation -> (x, dt, A, B, C) of the scan:
+    x = silu(xi_conv), dt softplus'd, A = -exp(A_log) in fp32, B and C the
+    x_proj splits (views)."""
+    xi = F.silu(xi_conv)
+    proj = linear(p["x_proj"], xi)                            # (B,S,dtr+2n)
+    dt, bmat, cmat = torch.split(proj, [dt_rank, n, n], dim=-1)
+    dt = softplus(dt @ p["dt_proj"]["w"].to(xi.dtype)
+                  + p["dt_proj"]["b"].to(xi.dtype))           # (B,S,inner)
+    a = -torch.exp(p["A_log"].to(torch.float32))              # (inner, n)
+    return xi, dt, a, bmat, cmat
+
+
+def _mamba_full(p, cfg: ArchConfig, scfg: SSMConfig, x, h0, impl: str):
+    """Shared full-sequence path: one `selective_scan` (one kernel launch on
+    the card). Returns (out, final state, conv tail)."""
+    xz = linear(p["in_proj"], x)
+    xi_raw, z = torch.chunk(xz, 2, dim=-1)
+    xi_conv = _mamba_conv(p, xi_raw)
+    xi, dt, a, bmat, cmat = _mamba_inner(p, xi_conv, _dt_rank(cfg, scfg),
+                                         scfg.state_dim)
+    y, h_last = SS.selective_scan(dt, a, bmat, cmat, xi, h0, impl=impl)
+    y = y.to(x.dtype) + xi * p["D"].to(x.dtype)
+    y = y * F.silu(z)
+    w = scfg.conv_width
+    # the last w - 1 raw inputs, zeros in front when S < w - 1
+    conv_tail = F.pad(xi_raw, (0, 0, w - 1, 0))[:, -(w - 1):]
+    return linear(p["out_proj"], y), h_last, conv_tail
+
+
+def mamba_train(p, cfg: ArchConfig, scfg: SSMConfig, x, *,
+                impl: str = "auto"):
+    """x: (B, S, d) -> (B, S, d), from a zero state."""
+    out, _, _ = _mamba_full(p, cfg, scfg, x, None, impl)
+    return out
+
+
+def init_mamba_cache(cfg: ArchConfig, scfg: SSMConfig, batch: int,
+                     dtype=torch.float32, *, lead=(), device=None):
+    """conv: the last conv_width - 1 raw inputs in `dtype`; ssm: the fp32
+    state."""
+    inner = scfg.expand * cfg.d_model
+    lead = tuple(lead)
+    return {"conv": torch.zeros(lead + (batch, scfg.conv_width - 1, inner),
+                                dtype=dtype, device=device),
+            "ssm": torch.zeros(lead + (batch, inner, scfg.state_dim),
+                               dtype=torch.float32, device=device)}
+
+
+def mamba_prefill(p, cfg: ArchConfig, scfg: SSMConfig, x, cache: Dict, *,
+                  impl: str = "auto"):
+    """Full-sequence pass from the cache's ssm state that leaves the final
+    state and the conv tail in the cache (as the reference, the conv starts
+    from zeros). `impl` picks the scan: "auto" (the kernel on the card, the
+    plain version on the CPU) or "ref"."""
+    out, h_last, conv_tail = _mamba_full(p, cfg, scfg, x, cache["ssm"], impl)
+    cache["conv"].copy_(conv_tail)
+    cache["ssm"].copy_(h_last)
+    return out, cache
+
+
+def mamba_decode(p, cfg: ArchConfig, scfg: SSMConfig, x, cache: Dict):
+    """x: (B, 1, d). One step of the recurrent form, plain PyTorch."""
+    xz = linear(p["in_proj"], x)
+    xi_raw, z = torch.chunk(xz, 2, dim=-1)                    # (B,1,inner)
+    conv_buf = torch.cat([cache["conv"].to(x.dtype), xi_raw], dim=1)
+    w = p["conv_w"].to(x.dtype)
+    xi = (torch.einsum("bwi,wi->bi", conv_buf, w)[:, None]
+          + p["conv_b"].to(x.dtype))
+    xi, dt, a, bmat, cmat = _mamba_inner(p, xi, _dt_rank(cfg, scfg),
+                                         scfg.state_dim)
+    f32 = torch.float32
+    da = torch.exp(dt[:, 0, :, None].to(f32) * a)             # (B, inner, n)
+    dbx = (dt[:, 0] * xi[:, 0])[..., None].to(f32) * bmat[:, 0, None, :].to(f32)
+    h = da * cache["ssm"] + dbx
+    y = torch.einsum("bin,bn->bi", h, cmat[:, 0].to(f32))[:, None].to(x.dtype)
+    y = y + xi * p["D"].to(x.dtype)
+    y = y * F.silu(z)
+    cache["conv"].copy_(conv_buf[:, 1:])
+    cache["ssm"].copy_(h)
+    return linear(p["out_proj"], y), cache

@@ -95,11 +95,16 @@ def apply_rope(x, positions, theta: float = 10000.0):
 
 # ----------------------------------------------------------------------
 # activations / FFN
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x) written as logaddexp(x, 0), as `jax.nn.softplus` is
+    (`F.softplus` switches to x above a threshold of 20, which the
+    reference does not)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
 def mish(x: torch.Tensor) -> torch.Tensor:
-    """x * tanh(softplus(x)), softplus written as logaddexp(x, 0) as
-    `jax.nn.softplus` is (`F.softplus` switches to x above a threshold of
-    20, which the reference does not)."""
-    return x * torch.tanh(torch.logaddexp(x, torch.zeros_like(x)))
+    """x * tanh(softplus(x))."""
+    return x * torch.tanh(softplus(x))
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Model zoo: a uniform interface over the architecture families the port
-supports (port of `repro/models/zoo.py`, the decoder-only dense attention
-family; the audio encoder-decoder, MoE, SSM, hybrid and VLM families raise
-and are ROADMAP Queue 1 item 13).
+supports (port of `repro/models/zoo.py`, the decoder-only families with
+dense FFNs: dense attention, Mamba, and the Jamba hybrid of Mamba and
+attention layers; MoE FFNs, xLSTM, the audio encoder-decoder and the VLM
+frontend raise and are ROADMAP Queue 1 item 13).
 
     model = build_model(cfg)
     params = model.init(generator, dtype, device=...)

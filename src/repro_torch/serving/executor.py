@@ -17,11 +17,14 @@ cross-patch attention (chunk-local RoPE positions). The per-chunk KV caches
 then merge back into one sequence-ordered cache (a reshape) that decode
 attends over. For ``c == 1`` the chunked path equals the unchunked one.
 Architectures whose caches are not pure attention KV (sliding-window
-rings) take the unchunked prefill.
+rings, Mamba states) take the unchunked prefill.
 
-On the card every prefill layer launches the hand-written flash attention
-kernel (`kernels.flash_attention`); `impl="ref"` runs the plain attention
-instead, which is how `chip_smoke.py` holds the served logits to it.
+On the card every prefill launches the hand-written kernels: flash
+attention once per attention layer (`kernels.flash_attention`) and the
+selective scan once per Mamba layer (`kernels.ssm_scan`), so a Jamba
+period's prefill launches `ssm_scan` 7 times and `flash_attention` once.
+`impl="ref"` runs the plain attention and scan instead, which is how
+`chip_smoke.py` holds the served logits to them.
 """
 from __future__ import annotations
 
@@ -161,8 +164,8 @@ class ModelExecutor:
 
         `force_chunked` overrides the chunking heuristic (tests hold the
         c=1 chunked path to the unchunked one). `impl` picks the prefill
-        attention ("auto": the kernel on the card; "ref": the plain
-        version)."""
+        attention and scan ("auto": the kernels on the card; "ref": the
+        plain versions)."""
         model = self.model(arch)
         dev = self.device
         f32 = torch.float32

@@ -9,9 +9,12 @@ runs, one line per result:
 1. the card's name and power limit, and the kernels' build time;
 2. the env_step kernel against its plain PyTorch version on random states
    (B = 256, E in {8, 12}, K = 32, l = 8, one and three models, with and
-   without fault columns): exact on ints, bools and the clock;
-3. the denoiser_chain kernel against its plain version (B = 256, A = 10,
-   F in {12, 16, 20}, H = 256; K = 10 DDPM and K = 5 DDIM coefficients;
+   without fault columns), then through one `EnvStepPlan` kept over three
+   decisions at B = 253, with and without faults: exact on ints, bools and
+   the clock;
+3. the denoiser_chain kernel against its plain version (A = 10, H = 256;
+   B in {1, 3, 16, 256, 300} x F in {12, 16, 20} x K = 10 DDPM and K = 5
+   DDIM coefficients, and the distiller's K = 10 DDIM chain at N = 4096;
    F = 12 is the 4-server cell of phase 14);
 4. the main path: `batch_rollout` of the EAT actor (random weights from a
    seed, the AgentConfig defaults) with samplers "ddpm" and "ddim:5" on the
@@ -22,7 +25,9 @@ runs, one line per result:
    EAT teacher-forced, EAT closed loop on aggregate metrics;
 6. a timing row per kernel: device and call time, plain-version time,
    bound and (flash_attention) `scaled_dot_product_attention`'s time, at
-   the main path's shapes (ssm_scan at Jamba's 2048-token prefill);
+   the main path's shapes (ssm_scan at Jamba's 2048-token prefill); the
+   two redesigned kernels (env_step's call, the chain) also get CUDA-event
+   device time and a note of what changed;
 7. the denoiser_step kernel against its plain version (A = 10, H = 256,
    F in {16, 20}, B in {256, 300, 4096}, and a 1-D input);
 8. SAC training at full width on paper-8srv (`core.sac.train`: a uniform
@@ -82,10 +87,11 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 rate and fp32 rate
-# outside the tensor cores.
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 rate, fp32 rate
+# outside the tensor cores, dense TF32 rate of the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 494.7e12
 CHAIN_ATOL = 1e-4     # ~10x the fp32-vs-fp64 gap of the plain chain
 STEP_ATOL = 1e-5      # one MLP pass: fp32 sums in another order, a tanh
 ENV_ATOL = 1e-5       # quality / obs / reward (exp and a reordered sum)
@@ -100,6 +106,13 @@ LOSS_RTOL = 1e-4      # one SAC update, card against CPU
 LOGIT_RTOL = 1e-3
 KERNELS = ("env_step", "denoiser_chain", "denoiser_step", "flash_attention",
            "ssm_scan")
+# the redesigned kernels and what changed (their earlier times are in
+# PERF.md section 6)
+REDESIGNED = {
+    "env_step": ("EnvStepPlan: statics checked once, one pointer table, "
+                 "three output buffers"),
+    "denoiser_chain": ("8-CTA cluster, resident weights, 3xTF32 mma, "
+                       "bulk-copy exchanges")}
 # exponentials per second on the special-function units: 16 per clock per
 # SM (Hopper white paper: 4 per SM sub-partition), 132 SMs, 1.98 GHz boost
 SFU_EXP_PER_S = 16 * 132 * 1.98e9
@@ -223,6 +236,33 @@ def time_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def device_ms_events(fn, iters=200, warmup=3):
+    """Mean device ms per call of `fn` by CUDA events with the host ahead
+    of the card: a spin kernel (`torch.cuda._sleep`, sized at twice the
+    host's time to enqueue the calls) holds the stream while the host
+    enqueues all `iters` calls, so the events time the device work back to
+    back and none of the host's. None when the spin ended before the last
+    call was enqueued."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    torch.cuda._sleep(int(2 * host_s * 2e9) + 1000000)   # ~2 GHz SM clock
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    ahead = not start.query()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters if ahead else None
+
+
 def kernel_device_ms(fn, name, iters=20):
     """(mean device ms per launch of the kernel named `name`, launches the
     profiler recorded) over `iters` calls under torch.profiler; (None, 0)
@@ -281,11 +321,53 @@ def uncounted():
 
 
 # ----------------------------------------------------------------- phases
-def phase_env_step(dev, B=256, K=32, l=8, Es=(8, 12), models=(1, 3),
-                   decisions=3):
-    """env_step kernel vs plain version; returns (max float error, timing
-    inputs at the paper-8srv main-path shape)."""
+def _env_step_same(got, want, ctx):
+    """The kernel's outputs against the plain version's: exact on every
+    integer, boolean and the clock; quality, obs and reward within ENV_ATOL.
+    Returns the largest float error."""
     from repro_torch.core import env as EV
+    worst = 0.0
+    for name in EV.EnvState._fields:
+        g, w = getattr(got[0], name), getattr(want[0], name)
+        assert g.dtype == w.dtype, f"{ctx}: {name} dtype"
+        if name == "task_quality":
+            err = (g - w).abs().max().item()
+            assert err <= ENV_ATOL, f"{ctx}: {name} {err}"
+            worst = max(worst, err)
+        else:
+            assert torch.equal(g, w), f"{ctx}: {name} differs"
+    for name in EV.QueueView._fields:
+        assert torch.equal(getattr(got[1], name),
+                           getattr(want[1], name)), f"{ctx}: q.{name}"
+    assert torch.equal(got[4], want[4]), f"{ctx}: done"
+    for name, g, w in (("obs", got[2], want[2]), ("reward", got[3], want[3])):
+        err = (g - w).abs().max().item()
+        assert err <= ENV_ATOL * max(1.0, w.abs().max().item()), \
+            f"{ctx}: {name} err {err}"
+        worst = max(worst, err)
+    return worst
+
+
+def _env_actions(rng, B, A, l, step, decisions):
+    a = rng.uniform(size=(B, A)).astype(np.float32)
+    a[::2, 0] = 0.1
+    if step == decisions - 1:   # NaN actions: defined path
+        a[0::8, 2 + step % l] = np.nan
+        a[2::8, 2:] = np.nan
+        a[4::8, 1] = np.nan
+        a[1::8, :] = np.nan
+    return a
+
+
+def phase_env_step(dev, B=256, K=32, l=8, Es=(8, 12), models=(1, 3),
+                   decisions=3, plan_B=253):
+    """env_step kernel vs plain version through `env_step_fused` (a plan
+    built per call), then through one `EnvStepPlan` kept across decisions
+    at B = `plan_B` (not a multiple of the kernel's 4 envs per block), with
+    and without faults; returns (max float error, timing inputs at the
+    paper-8srv main-path shape)."""
+    from repro_torch.core import env as EV
+    from repro_torch.kernels.env_step import kernel as EKK
     from repro_torch.kernels.env_step import ops as EK
     worst, timing = 0.0, None
     for E in Es:
@@ -300,79 +382,89 @@ def phase_env_step(dev, B=256, K=32, l=8, Es=(8, 12), models=(1, 3),
                 statics = EV.decision_statics(cfg, tr)
                 q = EV.visible_queue(cfg, tr, st)
                 for step in range(decisions):
-                    a = rng.uniform(size=(B, cfg.action_dim)).astype(np.float32)
-                    a[::2, 0] = 0.1
-                    if step == decisions - 1:   # NaN actions: defined path
-                        a[0::8, 2 + step % l] = np.nan
-                        a[2::8, 2:] = np.nan
-                        a[4::8, 1] = np.nan
-                        a[1::8, :] = np.nan
-                    a = torch.from_numpy(a).to(dev)
+                    a = torch.from_numpy(_env_actions(
+                        rng, B, cfg.action_dim, l, step, decisions)).to(dev)
                     if (E, nm, faults, step) == (Es[0], 1, False, 0):
                         timing = (cfg, statics, st, a, q)
                     got = EK.env_step_fused(cfg, statics, st, a, q)
                     want = EK.env_step_fused(cfg, statics, st, a, q, impl="ref")
                     sync(dev)
-                    ctx = f"env_step E={E} nm={nm} faults={faults} step={step}"
-                    for name in EV.EnvState._fields:
-                        g, w = getattr(got[0], name), getattr(want[0], name)
-                        assert g.dtype == w.dtype, f"{ctx}: {name} dtype"
-                        if name == "task_quality":
-                            err = (g - w).abs().max().item()
-                            assert err <= ENV_ATOL, f"{ctx}: {name} {err}"
-                            worst = max(worst, err)
-                        else:
-                            assert torch.equal(g, w), f"{ctx}: {name} differs"
-                    for name in EV.QueueView._fields:
-                        assert torch.equal(getattr(got[1], name),
-                                           getattr(want[1], name)), f"{ctx}: q.{name}"
-                    assert torch.equal(got[4], want[4]), f"{ctx}: done"
-                    for name, g, w in (("obs", got[2], want[2]),
-                                       ("reward", got[3], want[3])):
-                        err = (g - w).abs().max().item()
-                        assert err <= ENV_ATOL * max(1.0, w.abs().max().item()), \
-                            f"{ctx}: {name} err {err}"
-                        worst = max(worst, err)
+                    worst = max(worst, _env_step_same(
+                        got, want, f"env_step E={E} nm={nm} faults={faults} "
+                        f"step={step}"))
                     st, q = want[0], want[1]
+    for faults in (False, True):
+        rng = np.random.default_rng(7 + faults)
+        E = Es[0]
+        cfg = EV.EnvConfig(num_servers=E, max_tasks=K, queue_window=l)
+        tr = to_dev(np_traces(rng, plan_B, K, E, 1, faults), dev)
+        st = EV.EnvState(**to_dev(np_states(rng, plan_B, E, K, 1), dev))
+        statics = EV.decision_statics(cfg, tr)
+        q = EV.visible_queue(cfg, tr, st)
+        plan = EKK.EnvStepPlan(cfg, statics, plan_B, dev)
+        kept = []
+        for step in range(decisions):
+            a = torch.from_numpy(_env_actions(
+                rng, plan_B, cfg.action_dim, l, step, decisions)).to(dev)
+            got = plan(st, a, q)
+            want = EK.env_step_fused(cfg, statics, st, a, q, impl="ref")
+            sync(dev)
+            worst = max(worst, _env_step_same(
+                got, want, f"EnvStepPlan B={plan_B} faults={faults} "
+                f"step={step}"))
+            kept.append((got, want))
+            st, q = got[0], got[1]     # the plan's own outputs feed it
+        # outputs kept from earlier decisions were not overwritten
+        for step, (got, want) in enumerate(kept):
+            _env_step_same(got, want, f"EnvStepPlan kept step {step}")
     log(f"phase 2 env_step kernel == plain: {len(Es) * len(models) * 2} cases x "
-        f"{decisions} decisions at B={B} K={K} l={l}, NaN actions in the last; "
-        f"ints, bools and clock exact, max float err {worst:.3g} "
-        f"(tol {ENV_ATOL})")
+        f"{decisions} decisions at B={B} K={K} l={l}, NaN actions in the last, "
+        f"and one EnvStepPlan per fault mode kept over {decisions} decisions "
+        f"at B={plan_B}; ints, bools and clock exact, max float err "
+        f"{worst:.3g} (tol {ENV_ATOL})")
     return worst, timing
 
 
-def phase_chain(dev, B=256, A=10, Fs=(16, 20, 12), H=256, T=10):
-    """denoiser_chain kernel vs plain version; returns (max error, timing
-    inputs at the paper-8srv DDPM main-path shape, F = Fs[0])."""
+def phase_chain(dev, Bs=(1, 3, 16, 256, 300), A=10, Fs=(16, 20, 12), H=256,
+                T=10, distill_n=4096, timing_B=256):
+    """denoiser_chain kernel vs plain version on every B in `Bs` x F in `Fs`
+    x (ddpm K = T, ddim K = 5), and the distiller's full-grid DDIM chain
+    (K = T) at its N = `distill_n` (`DistillConfig().dataset`); returns
+    (max error, timing inputs at the paper-8srv DDPM main-path shape,
+    B = `timing_B`, F = Fs[0])."""
     from repro_torch.actors import samplers as SMP
     from repro_torch.core import diffusion as DF
     from repro_torch.kernels.denoiser import kernel as DK
     from repro_torch.kernels.denoiser.ref import denoiser_chain_ref
     g = torch.Generator(device=dev).manual_seed(3)
     sched = DF.vp_schedule(T, device=dev)
-    worst, timing = 0.0, None
-    for F in Fs:
-        p = DF.init_denoiser(A, F, H, generator=g, device=dev)
-        w = [t for layer in p["layers"] for t in (layer["w"], layer["b"])]
+    worst, timing, n = 0.0, None, 0
+    cases = [(B, F, kind, K) for F in Fs for B in Bs
+             for kind, K in (("ddpm", None), ("ddim", 5))]
+    cases.append((distill_n, Fs[0], "ddim", T))
+    params = {F: DF.init_denoiser(A, F, H, generator=g, device=dev)
+              for F in Fs}
+    for B, F, kind, K in cases:
+        w = [t for layer in params[F]["layers"] for t in (layer["w"], layer["b"])]
         x = torch.randn((B, A), generator=g, device=dev)
         f_s = torch.randn((B, F), generator=g, device=dev)
-        for kind, K in (("ddpm", None), ("ddim", 5)):
-            c = SMP.chain_coeffs(sched, kind, K)
-            Ks = c.tembs.shape[0]
-            noises = (torch.randn((Ks, B, A), generator=g, device=dev)
-                      if kind == "ddpm" else torch.zeros((Ks, B, A), device=dev))
-            args = (x, noises, f_s, c.tembs, c.coef_x, c.coef_e, c.coef_n, *w)
-            got = DK.denoiser_chain(*args)
-            want = denoiser_chain_ref(*args)
-            err = (got - want).abs().max().item()
-            assert got.shape == (B, A) and bool(torch.isfinite(got).all())
-            assert err <= CHAIN_ATOL, f"chain F={F} {kind}: err {err}"
-            worst = max(worst, err)
-            if (F, kind) == (Fs[0], "ddpm"):
-                timing = args
-    log(f"phase 3 denoiser_chain kernel ~ plain: F in {list(Fs)}, ddpm K={T} "
-        f"and ddim K=5 at B={B} A={A} H={H}; max abs err {worst:.3g} "
-        f"(tol {CHAIN_ATOL})")
+        c = SMP.chain_coeffs(sched, kind, K)
+        Ks = c.tembs.shape[0]
+        noises = (torch.randn((Ks, B, A), generator=g, device=dev)
+                  if kind == "ddpm" else torch.zeros((Ks, B, A), device=dev))
+        args = (x, noises, f_s, c.tembs, c.coef_x, c.coef_e, c.coef_n, *w)
+        got = DK.denoiser_chain(*args)
+        want = denoiser_chain_ref(*args)
+        err = (got - want).abs().max().item()
+        assert got.shape == (B, A) and bool(torch.isfinite(got).all())
+        assert err <= CHAIN_ATOL, f"chain B={B} F={F} {kind} K={Ks}: err {err}"
+        worst, n = max(worst, err), n + 1
+        if (B, F, kind) == (timing_B, Fs[0], "ddpm"):
+            timing = args
+    log(f"phase 3 denoiser_chain kernel ~ plain: {n} cases, B in {list(Bs)} "
+        f"x F in {list(Fs)} x (ddpm K={T}, ddim K=5), and the distiller's "
+        f"ddim K={T} chain at N={distill_n}, A={A} H={H}; max abs err "
+        f"{worst:.3g} (tol {CHAIN_ATOL})")
     return worst, timing
 
 
@@ -1210,17 +1302,24 @@ def measure(env_timing, chain_timing, step_timing, flash_timing, ssm_timing,
     tensors, and its bound counts 4·hd FLOPs per unmasked (query, key)
     pair. ssm_scan's operations are its S·I·N exponentials at the SFU rate
     and its 6 fp32 operations per state and step (`bound_terms_ms` gives
-    each term); no single PyTorch call computes it. `launches` is each
+    each term); no single PyTorch call computes it. The chain's operations
+    term is the lesser of its FLOPs at the fp32 rate and three times its
+    FLOPs (3xTF32) at the dense TF32 rate. `launches` is each
     kernel's count summed over the main-path runs (phases 4, 8, 9, 10, 12
     and 14), `launches_per_request` a serving kernel's per served request
-    in phases 12 and 14."""
+    in phases 12 and 14. The two redesigned kernels (env_step,
+    denoiser_chain) also carry `event_device_ms` (CUDA events with the host
+    ahead of the card, `device_ms_events`) and, as text, what changed; the
+    env_step row times the call the main path makes, an `EnvStepPlan`'s."""
     from repro_torch.kernels.denoiser import kernel as DK
     from repro_torch.kernels.denoiser.ref import denoiser_chain_ref, denoiser_ref
     from repro_torch.kernels.env_step import ops as EKO
     from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.kernels.ssm_scan import ops as SS
+    from repro_torch.kernels.env_step import kernel as EKK
     cfg, statics, st, a, q = env_timing
-    env_k = lambda: EKO.env_step_fused(cfg, statics, st, a, q)  # noqa: E731
+    plan = EKK.EnvStepPlan(cfg, statics, a.shape[0], a.device)
+    env_k = lambda: plan(st, a, q)  # noqa: E731
     env_p = lambda: EKO.env_step_fused(cfg, statics, st, a, q, impl="ref")  # noqa: E731
     out = env_k()
     # Bytes the decision needs: the state, queue and action in full, the
@@ -1280,8 +1379,10 @@ def measure(env_timing, chain_timing, step_timing, flash_timing, ssm_timing,
              env_bytes, 0, fp32(0), "env_step_kernel", 200),
             ("denoiser_chain", "src/repro_torch/csrc/denoiser_chain.cu",
              "src/repro/kernels/denoiser/kernel.py:115", chain_k, chain_p,
-             None, chain_bytes, chain_flops, fp32(chain_flops),
-             "chain_kernel", 200),
+             None, chain_bytes, chain_flops,
+             {**fp32(chain_flops),
+              "tf32x3_operations": 3 * chain_flops / TF32_FLOP_PER_S},
+             "chain_cluster_kernel", 200),
             ("denoiser_step", "src/repro_torch/csrc/denoiser_step.cu",
              "src/repro/kernels/denoiser/kernel.py:50", step_k, step_p, None,
              step_bytes, step_flops, fp32(step_flops),
@@ -1299,7 +1400,15 @@ def measure(env_timing, chain_timing, step_timing, flash_timing, ssm_timing,
         dev_ms, seen = kernel_device_ms(k_fn, kname)
         plain_ms = time_ms(p_fn, max(it // 4, 5))
         terms = {"bytes": nb / HBM_BYTES_PER_S, **ops_s}
-        top = max(terms, key=terms.get)
+        # the products take the least time of the units that can do them
+        # (fp32 FMAs or 3xTF32 on the tensor cores); the other terms are
+        # all needed, so the bound is the largest
+        alts = ("fp32_operations", "tf32x3_operations")
+        need = {k: v for k, v in terms.items() if k not in alts}
+        need["operations"] = min(terms[k] for k in alts if k in terms)
+        top = max(need, key=need.get)
+        bound = need[top]
+        top = "bytes" if top == "bytes" else "operations"
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
                      "launches_per_request": per_request.get(name),
@@ -1308,12 +1417,15 @@ def measure(env_timing, chain_timing, step_timing, flash_timing, ssm_timing,
                      "ms_from": "events" if dev_ms is None else "profiler",
                      "profiled_launches": seen,
                      "call_ms": call_ms, "plain_ms": plain_ms,
-                     "bound_ms": 1e3 * terms[top],
-                     "bound_by": "bytes" if top == "bytes" else "operations",
+                     "bound_ms": 1e3 * bound,
+                     "bound_by": top,
                      "bound_terms_ms": {k: 1e3 * v for k, v in terms.items()},
                      "bytes": nb, "flops": flops, "launch_floor": floor,
                      "library_ms": (None if lib_fn is None
                                     else time_ms(lib_fn, it))})
+        if name in REDESIGNED:
+            rows[-1].update({"event_device_ms": device_ms_events(k_fn, it),
+                             "redesigned": REDESIGNED[name]})
         log(f"phase 6 timing {name} [{card}]: " + json.dumps(rows[-1]))
     return rows
 

@@ -3,8 +3,9 @@ engine of Algorithm 1's loop).
 
 Each decision does three things for all B envs at once: the policy acts on
 the observation, one fused env-step op (`kernels/env_step`, one kernel
-launch on the card) advances the envs and returns the next queue and
-observation, and finished envs are frozen with `where(done, old, new)`.
+launch on the card, through an `EnvStepPlan` built once per rollout)
+advances the envs and returns the next queue and observation, and finished
+envs are frozen with `where(done, old, new)`.
 
 Policy protocol
 ---------------
@@ -80,10 +81,10 @@ def batch_rollout(ecfg: EV.EnvConfig, traces: Dict, policy: Policy, params,
     total = torch.zeros((B,), dtype=torch.float32, device=dev)
     length = torch.zeros((B,), dtype=torch.int32, device=dev)
     steps = []
+    env_step = EK.env_stepper(ecfg, statics, B, dev, impl=impl)
     for _ in range(T):
         action, extras = policy(params, gen, traces, state, obs)
-        nstate, nq, nobs, r, d = EK.env_step_fused(ecfg, statics, state,
-                                                   action, q, impl=impl)
+        nstate, nq, nobs, r, d = env_step(state, action, q)
         nstate = _freeze(done, nstate, state)
         nq = _freeze(done, nq, q)
         nobs = torch.where(done[:, None, None], obs, nobs)

@@ -1,4 +1,5 @@
-// The whole K-step reverse-diffusion chain in one launch.
+// The whole K-step reverse-diffusion chain in one launch, on a thread-block
+// cluster with its weights resident and fc1 / fc2 on the tensor cores.
 //
 // Replaces the Pallas kernel `repro/kernels/denoiser/kernel.py`
 // (`_chain_kernel`, launched by `denoiser_chain`). For j = 0..K-1:
@@ -7,141 +8,663 @@
 // and the result is tanh(x). Weights are row-major (in, out), as in the
 // reference's params.
 //
-// Bound: fp32 operations. At the paper's widths (A = 10, F = 16..20,
-// H = 256) a row costs ~160 kFLOP per step, dominated by the H x H product,
-// while the weights are ~317 KB, read once from device memory. One block
-// owns ROWS batch rows for the whole chain: x, f_s, the timestep embedding
-// and both hidden activations stay in shared memory across all K steps, W1,
-// W3 and the biases are copied into shared memory once, and W2 (256 KB, too
-// large for one block's 227 KB next to W1) is streamed from global memory,
-// where it stays in L2, each load feeding ROWS fused multiply-adds. Plain
-// fp32 FMAs, one hidden column per thread; wgmma, TMA or a 2-CTA cluster
-// holding W2 on chip is later work.
+// Bound: operations. At the paper's widths (A = 10, F = 12..20, H = 256) a
+// row costs ~160 kFLOP per step, dominated by the H x H product, while the
+// weights are ~317 KB. The chain is sequential in j, so the card is covered
+// by splitting each step's work, not the steps:
+//
+// * A cluster of C = 8 CTAs (`cudaLaunchAttributeClusterDimension`) owns a
+//   tile of R = 16 batch rows; the hidden width H = 256 is fixed at compile
+//   time, 32 columns per CTA. CTA r owns hidden columns
+//   [r H/C, (r+1) H/C): those columns of W1 and b1, the same rows of W2 and
+//   W3 and columns of b2. Its slices are copied into shared memory once per
+//   launch with cp.async (W1 in one group, W2 and W3 in a second still in
+//   flight while the first step's fc1 runs) and stay there for every step
+//   of every tile the cluster walks: W2 is read from L2 once per CTA, not
+//   once per step.
+// * fc1 and fc2 run on the tensor cores with `mma.sync.m16n8k8` in TF32 at
+//   fp32 accuracy (3xTF32): each operand v is split into a TF32 v_hi and
+//   v_lo = v - v_hi, and a product is a_hi b_hi + a_hi b_lo + a_lo b_hi with
+//   fp32 accumulation. Plain TF32 (11 significant bits) would break the
+//   chain's 1e-4; the dropped a_lo b_lo term is ~2^-22 of the product. At
+//   R = 16 one m16 tile covers the rows, so `wgmma` (64-row tiles) would
+//   run three quarters empty. fc1 multiplies only x on the tensor cores:
+//   b1 + f_s W1 holds for the whole chain and is summed once per tile, and
+//   temb_j W1 is one row per step, summed in fp32 by threads that would
+//   otherwise wait.
+// * fc2 is split by its rows: CTA r multiplies its own columns of h1 by its
+//   rows of W2 into partial sums for all H columns, and sends each other
+//   CTA the block of partials of that CTA's columns in one bulk copy
+//   (cp.async.bulk shared::cta -> shared::cluster). Each CTA sums the C
+//   blocks of its columns in rank order, so h1 never leaves its CTA. fc3 is
+//   split the same way: each CTA sends its partial (R x A) over its rows of
+//   W3 to every other, and every CTA sums the C partials in rank order
+//   0..C-1, so every CTA holds the same x, bit for bit.
+// * A bulk copy counts its bytes on the receiver's mbarrier, which the
+//   receiver arms with the step's expected bytes and waits on: the two
+//   exchanges of a step need no cluster-wide barrier, whose release costs a
+//   GPU-scope fence (MEMBAR.ALL.GPU) on every thread.
+// * A step's noise rows, temb_j and coefficients are staged into shared
+//   memory with 4-byte cp.async while the step before is computed.
+// * Clusters are persistent: the grid holds as many clusters as can be
+//   resident (the wrapper asks `cudaOccupancyMaxActiveClusters`, at most one
+//   per row tile), and each walks the row tiles tile = id, id + clusters, ...
+//   with its weights still in shared memory. A partial last tile computes on
+//   zero rows and stores only the rows < B.
+//
+// The affine update and the final tanh round as the reference's `_pin`
+// does (__fmul_rn / __fadd_rn); mish is `mlp_common.cuh`'s.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "mlp_common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int ROWS = 4;       // batch rows per block
-constexpr int THREADS = 256;  // one hidden column per thread (strided if H > 256)
+constexpr int R = 16;              // batch rows per cluster tile (one m16 tile)
+constexpr int GROUPS = 4;          // column groups of a CTA's slice
+constexpr int WARPS = 2 * GROUPS;  // a column group's k halves
+constexpr int THREADS = WARPS * 32;
+// The hidden width the paper's denoiser uses, split over a cluster of C
+// CTAs of NCOL columns each (NT column tiles of 8 per column group): fixed
+// at compile time, so the mma loops unroll with every shared-memory offset
+// a constant.
+constexpr int H = 256;
+constexpr int C = 8;
+constexpr int NT = 1;
+constexpr int NCOL = NT * GROUPS * 8;
+static_assert(NCOL * C == H, "the cluster covers the hidden width");
+
+__host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
+// the least m >= n with m = 4 mod 16
+__host__ __device__ constexpr int pad16_4(int n) { return (n + 11) / 16 * 16 + 4; }
+
+// Shared-memory layout of one CTA, in floats; each region starts on 16
+// bytes. Mirrored by `chain_smem_bytes` in kernels/denoiser/kernel.py. The
+// A operands (the x tile and this CTA's h1 columns) are kept split, as (hi,
+// lo) float pairs, so the mma loops load them with 8-byte loads and split
+// only the weights. The fc2 partials are kept by owner: block q holds the
+// R x ncol partial sums of CTA q's columns, contiguous, so it goes to CTA q
+// in one bulk copy. Leading dimensions are padded so the fragments' shared
+// loads hit distinct banks: the weights' rows (ncol + 8 and H + 8 floats)
+// = 8 mod 32, the A operands' rows (LDX and pad16_4(ncol) pairs) = 4 mod
+// 16.
+constexpr int XK = 16;             // x's columns in fc1's mma (A <= 16)
+constexpr int LDX = pad16_4(XK);
+
+struct Layout {
+  int D, w1rows, stage;
+  int w1, w2, w3, b1, b2, b3, in, h1, out, recv, h2, fsb, tb, step, part,
+      red, bars, total;
+};
+
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+
+__host__ __device__ constexpr Layout make_layout(int A, int F, int TD) {
+  Layout L{};
+  const int ncol = NCOL;
+  const int blk = R * (ncol + 4);              // R x ncol, padded, floats
+  L.D = A + TD + F;
+  L.w1rows = imax(XK, L.D);
+  L.stage = round4(R * A + TD + 3);            // one step's noise, temb, c_*
+  int off = 0;
+  L.w1 = off;   off += round4(L.w1rows * (ncol + 8));  // W1[:, cols]
+  L.w2 = off;   off += round4(ncol * (H + 8)); // W2[cols, :]
+  L.w3 = off;   off += round4(ncol * A);       // W3[cols, :]
+  L.b1 = off;   off += round4(ncol);
+  L.b2 = off;   off += round4(ncol);
+  L.b3 = off;   off += round4(A);
+  L.in = off;   off += 2 * R * LDX;            // [x, 0 pad] pairs
+  L.h1 = off;   off += 2 * R * pad16_4(ncol);  // this CTA's columns of h1
+  L.out = off;  off += C * blk;                // fc2 partials, by owner
+  L.recv = off; off += C * blk;                // fc2 partials in, by rank
+  L.h2 = off;   off += blk;                    // this CTA's columns of h2
+  L.fsb = off;  off += blk;                    // b1 + f_s W1, per tile
+  L.tb = off;   off += 2 * round4(ncol);       // temb_j W1, two steps
+  L.step = off; off += 2 * L.stage;            // two steps' inputs
+  L.part = off; off += round4(C * R * A);      // fc3 partials by rank
+  L.red = off;  off += 16 * ncol;              // fc1's k halves' exchange
+  L.bars = off; off += 4;                      // two mbarriers (8 bytes)
+  L.total = off;
+  return L;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The exchange between the CTAs of a cluster: a CTA copies a contiguous
+// block of its shared memory into another's with one bulk asynchronous copy
+// (cp.async.bulk, shared::cta to shared::cluster), which counts the bytes
+// on the receiver's mbarrier; the receiver expects the bytes of each step
+// and waits for the phase. No cluster-wide barrier (and none of the
+// GPU-scope fence that barrier.cluster's release costs) sits on the step's
+// path.
+__device__ __forceinline__ uint32_t peer_addr(const void* p, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(smem_addr(p)), "r"(rank));
+  return out;
+}
+// Copies `bytes` (a multiple of 16) from this CTA's `src` to `dst` in CTA
+// `rank` (`dst` names the same offset in this CTA's shared memory), counted
+// on that CTA's `bar`; returns once `src` has been read, so the caller may
+// overwrite it.
+__device__ __forceinline__ void bulk_to_peer(void* dst, const void* src,
+                                             int bytes, uint64_t* bar,
+                                             int rank) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      "cp.async.bulk.commit_group;\n"
+      "cp.async.bulk.wait_group.read 0;\n" ::"r"(peer_addr(dst, rank)),
+      "r"(smem_addr(src)), "r"(bytes), "r"(peer_addr(bar, rank))
+      : "memory");
+}
+// Orders this thread's shared-memory writes before the async proxy's reads
+// (the bulk copies started after the next __syncthreads).
+__device__ __forceinline__ void fence_to_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+}
+
+// v = hi + lo: hi is v rounded to TF32's 11 significant bits (to nearest,
+// ties away, on the bit pattern: two integer operations, where cvt.rna
+// costs many), lo = v - hi is exact in fp32, and the mma reads lo's top 11
+// bits, so hi + lo carries v to 2^-21 of |v|.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ float2 split_pair(float v) {
+  uint32_t hi, lo;
+  split_tf32(v, hi, lo);
+  return make_float2(__uint_as_float(hi), __uint_as_float(lo));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc[j] (this lane's m16n8 fragment of column tile j) = the sum over nk
+// k-tiles of a (R x 8 per k-tile, (hi, lo) pairs, row-major, lda) times
+// w[8k.., n0 + 8j ..] (fp32, row-major, ldw), in 3xTF32. Fragment layout of
+// m16n8k8 (g = lane / 4, t = lane % 4): a {(g, t), (g+8, t), (g, t+4),
+// (g+8, t+4)}, b {(t, g), (t+4, g)}, d {(g, 2t), (g, 2t+1), (g+8, 2t),
+// (g+8, 2t+1)}. KP k-tiles are loaded together and multiplied into KP
+// independent accumulators (nk must be a multiple of KP); called with
+// constant nk, lda and ldw, the loop unrolls to loads at fixed offsets.
+template <int NT, int KP>
+__device__ __forceinline__ void mma_range(const float2* __restrict__ a,
+                                          int lda, int nk,
+                                          const float* __restrict__ w,
+                                          int ldw, int n0,
+                                          float (&acc)[NT][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float big[KP][NT][4], small[KP][NT][4];
+#pragma unroll
+  for (int p = 0; p < KP; ++p)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) big[p][j][i] = small[p][j][i] = 0.f;
+  const float2* arow = a + g * lda + t;
+  const float* wcol = w + t * ldw + n0 + g;
+#pragma unroll
+  for (int k0 = 0; k0 < nk; k0 += KP) {
+    float2 ra[KP][4];
+    float rb[KP][NT][2];
+#pragma unroll
+    for (int p = 0; p < KP; ++p) {
+      const float2* ap = arow + (k0 + p) * 8;
+      ra[p][0] = ap[0];
+      ra[p][1] = ap[8 * lda];
+      ra[p][2] = ap[4];
+      ra[p][3] = ap[8 * lda + 4];
+      const float* wp = wcol + (k0 + p) * 8 * ldw;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        rb[p][j][0] = wp[j * 8];
+        rb[p][j][1] = wp[4 * ldw + j * 8];
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < KP; ++p) {
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ah[i] = __float_as_uint(ra[p][i].x);
+        al[i] = __float_as_uint(ra[p][i].y);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(rb[p][j][0], bh0, bl0);
+        split_tf32(rb[p][j][1], bh1, bl1);
+        mma_tf32(small[p][j], al, bh0, bh1);
+        mma_tf32(small[p][j], ah, bl0, bl1);
+        mma_tf32(big[p][j], ah, bh0, bh1);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float s = big[0][j][i] + small[0][j][i];
+#pragma unroll
+      for (int p = 1; p < KP; ++p) s += big[p][j][i] + small[p][j][i];
+      acc[j][i] = s;
+    }
+}
+
+// fc1's product for this CTA's columns: warp (grp, kh) = (warp % 4,
+// warp / 4) multiplies its column group over k-tiles [kh nk, (kh + 1) nk);
+// the halves meet in shared memory (the lower half's sum first, in every
+// CTA and every run), and each warp returns the finished sum for half the
+// rows: row g + 8 kh, columns n0 + 8j + 2t and + 1, in v[j].
+template <int NT>
+__device__ __forceinline__ void linear_half(const float2* __restrict__ a,
+                                            int lda, int nk,
+                                            const float* __restrict__ w,
+                                            int ldw, float* __restrict__ red,
+                                            float (&v)[NT][2]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int grp = warp % GROUPS, kh = warp / GROUPS;
+  float acc[NT][4];
+  mma_range<NT, 1>(a + kh * nk * 8, lda, nk, w + kh * nk * 8 * ldw, ldw,
+                   grp * NT * 8, acc);
+  // red: [kh of the writer][grp][j][lane][2]; each warp hands over the rows
+  // its partner finishes
+  float* mine = red + (((kh * GROUPS + grp) * NT) * 32 + lane) * 2;
+  const float* theirs = red + ((((1 - kh) * GROUPS + grp) * NT) * 32 + lane) * 2;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+    *reinterpret_cast<float2*>(mine + j * 64) =
+        kh ? make_float2(acc[j][0], acc[j][1]) : make_float2(acc[j][2], acc[j][3]);
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const float2 o = *reinterpret_cast<const float2*>(theirs + j * 64);
+    v[j][0] = kh ? o.x + acc[j][2] : acc[j][0] + o.x;
+    v[j][1] = kh ? o.y + acc[j][3] : acc[j][1] + o.y;
+  }
+}
 
 __global__ void __launch_bounds__(THREADS)
-chain_kernel(const float* __restrict__ x, const float* __restrict__ noises,
-             const float* __restrict__ fs, const float* __restrict__ tembs,
-             const float* __restrict__ cx, const float* __restrict__ ce,
-             const float* __restrict__ cn, const float* __restrict__ w1,
-             const float* __restrict__ b1, const float* __restrict__ w2,
-             const float* __restrict__ b2, const float* __restrict__ w3,
-             const float* __restrict__ b3, float* __restrict__ out, int B,
-             int A, int F, int TD, int H, int K) {
-  extern __shared__ float sm[];
-  const int D = A + TD + F;
-  float* sW1 = sm;               // D x H
-  float* sW3 = sW1 + D * H;      // H x A
-  float* sB1 = sW3 + H * A;      // H
-  float* sB2 = sB1 + H;          // H
-  float* sB3 = sB2 + H;          // A
-  float* sIn = sB3 + A;          // ROWS x D: [x, temb, f_s]
-  float* sH1 = sIn + ROWS * D;   // ROWS x H
-  float* sH2 = sH1 + ROWS * H;   // ROWS x H
-
+chain_cluster_kernel(const float* __restrict__ x,
+                     const float* __restrict__ noises,
+                     const float* __restrict__ fs,
+                     const float* __restrict__ tembs,
+                     const float* __restrict__ cx,
+                     const float* __restrict__ ce,
+                     const float* __restrict__ cn,
+                     const float* __restrict__ w1,
+                     const float* __restrict__ b1,
+                     const float* __restrict__ w2,
+                     const float* __restrict__ b2,
+                     const float* __restrict__ w3,
+                     const float* __restrict__ b3, float* __restrict__ out,
+                     int B, int A, int F, int TD, int K) {
+  constexpr int LDW = NCOL + 8, LDW2 = H + 8, LDB = pad16_4(NCOL);
+  constexpr int LDO = NCOL + 4, BLK = R * LDO;
+  constexpr int NT2 = H / (8 * WARPS);    // fc2 column tiles per warp
+  extern __shared__ __align__(16) float sm[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const Layout L = make_layout(A, F, TD);
+  float* sW1 = sm + L.w1;
+  float* sW2 = sm + L.w2;
+  float* sW3 = sm + L.w3;
+  float* sB1 = sm + L.b1;
+  float* sB2 = sm + L.b2;
+  float* sB3 = sm + L.b3;
+  float2* sIn = reinterpret_cast<float2*>(sm + L.in);
+  float2* sH1 = reinterpret_cast<float2*>(sm + L.h1);
+  float* sOut = sm + L.out;
+  float* sRecv = sm + L.recv;
+  float* sH2 = sm + L.h2;
+  float* sPart = sm + L.part;
+  float* sRed = sm + L.red;
+  // mbarriers: the other CTAs' fc2 partials, and their fc3 partials, in
+  uint64_t& bar_h = *reinterpret_cast<uint64_t*>(sm + L.bars);
+  uint64_t& bar_p = *reinterpret_cast<uint64_t*>(sm + L.bars + 2);
+  float* sFsb = sm + L.fsb;
+  float* sTb = sm + L.tb;
+  float* sStep = sm + L.step;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int row0 = blockIdx.x * ROWS;
-  for (int i = tid; i < D * H; i += THREADS) sW1[i] = w1[i];
-  for (int i = tid; i < H * A; i += THREADS) sW3[i] = w3[i];
-  for (int i = tid; i < H; i += THREADS) { sB1[i] = b1[i]; sB2[i] = b2[i]; }
-  for (int i = tid; i < A; i += THREADS) sB3[i] = b3[i];
-  for (int i = tid; i < ROWS * A; i += THREADS) {
-    const int r = i / A, a = i % A, row = row0 + r;
-    sIn[r * D + a] = row < B ? x[(size_t)row * A + a] : 0.f;
-  }
-  for (int i = tid; i < ROWS * F; i += THREADS) {
-    const int r = i / F, f = i % F, row = row0 + r;
-    sIn[r * D + A + TD + f] = row < B ? fs[(size_t)row * F + f] : 0.f;
-  }
+  const int g = lane >> 2, t = lane & 3;
+  const int D = L.D, RA = R * A;
+  const int c0 = rank * NCOL;      // first hidden column this CTA owns
+  const int row_h = g + 8 * (warp / GROUPS);             // fc1 epilogue row
+  const int n0 = (warp % GROUPS) * NT * 8 + 2 * t;       // + 8j: columns
+  // bytes that arrive from the other CTAs each step
+  const uint32_t tx_h = (C - 1) * BLK * 4, tx_p = (C - 1) * RA * 4;
+  // Step s's inputs (noise rows of the tile, temb_s, c_x, c_e, c_n) into
+  // stage buffer s % 2 with 4-byte asynchronous copies; rows >= B get 0.
+  auto stage = [&](int row0, int s) {
+    float* st = sStep + (s & 1) * L.stage;
+    for (int i = tid; i < RA + TD + 3; i += THREADS) {
+      if (i < RA) {
+        const int row = row0 + i / A;
+        if (row < B)
+          cp_async4(st + i, noises + ((size_t)s * B + row) * A + i % A);
+        else
+          st[i] = 0.f;
+      } else if (i < RA + TD) {
+        cp_async4(st + i, tembs + (size_t)s * TD + (i - RA));
+      } else {
+        const int c = i - RA - TD;
+        cp_async4(st + i, (c == 0 ? cx : c == 1 ? ce : cn) + s);
+      }
+    }
+  };
 
-  for (int s = 0; s < K; ++s) {
-    for (int i = tid; i < ROWS * TD; i += THREADS) {
-      const int r = i / TD, j = i % TD;
-      sIn[r * D + A + j] = tembs[s * TD + j];
-    }
-    __syncthreads();
-    // fc1 + mish: W1 and the inputs from shared memory
-    for (int j = tid; j < H; j += THREADS) {
-      float acc[ROWS] = {};
-      for (int d = 0; d < D; ++d) {
-        const float w = sW1[d * H + j];
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(sIn[r * D + d], w, acc[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) sH1[r * H + j] = mish(acc[r] + sB1[j]);
-    }
-    __syncthreads();
-    // fc2 + mish: W2 streamed from global memory (L2), coalesced over j
-    for (int j = tid; j < H; j += THREADS) {
-      float acc[ROWS] = {};
-#pragma unroll 8
-      for (int i = 0; i < H; ++i) {
-        const float w = __ldg(&w2[(size_t)i * H + j]);
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(sH1[r * H + i], w, acc[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) sH2[r * H + j] = mish(acc[r] + sB2[j]);
-    }
-    __syncthreads();
-    // fc3 + tanh + the affine update: one warp per (row, action dim)
-    for (int p = warp; p < ROWS * A; p += THREADS / 32) {
-      const int r = p / A, a = p % A, row = row0 + r;
+  // fc1's embedding part of step s, temb_s W1[A.., cols] (the same for every
+  // row, fp32), into buffer s % 2, by the last NCOL threads (past fc3's
+  // when R A + NCOL <= THREADS); stage(s) must be visible.
+  auto embed_part = [&](int s) {
+    const int c = tid - (THREADS - NCOL);
+    if (c >= 0) {
+      const float* st = sStep + (s & 1) * L.stage;
       float acc = 0.f;
-      for (int i = lane; i < H; i += 32) acc = fmaf(sH2[r * H + i], sW3[i * A + a], acc);
-      acc = warp_sum(acc);
-      if (lane == 0) {
-        const float eps = tanhf(acc + sB3[a]);
-        const float nz = row < B ? noises[((size_t)s * B + row) * A + a] : 0.f;
-        const float xv = sIn[r * D + a];
-        sIn[r * D + a] = __fadd_rn(__fadd_rn(__fmul_rn(cx[s], xv),
-                                             __fmul_rn(ce[s], eps)),
-                                   __fmul_rn(cn[s], nz));
+      for (int d = 0; d < TD; ++d)
+        acc = fmaf(st[RA + d], sW1[(A + d) * LDW + c], acc);
+      sTb[(s & 1) * round4(NCOL) + c] = acc;
+    }
+  };
+
+  // Weight slices, once per launch, with the first tile's step-0 inputs:
+  // group 0 (W1, b1, b2, the inputs) is waited for before the first tile,
+  // group 1 (W2, W3) before the first fc2. W2's slice is its rows c0.., one
+  // contiguous stretch of global memory.
+  constexpr int V4 = NCOL / 4;
+  for (int i = tid; i < D * V4; i += THREADS) {
+    const int d = i / V4, c = i % V4;
+    cp_async16(sW1 + d * LDW + 4 * c, w1 + (size_t)d * H + c0 + 4 * c);
+  }
+  for (int i = tid; i < V4; i += THREADS) {
+    cp_async16(sB1 + 4 * i, b1 + c0 + 4 * i);
+    cp_async16(sB2 + 4 * i, b2 + c0 + 4 * i);
+  }
+  if (K > 0) stage((blockIdx.x / C) * R, 0);
+  cp_async_commit();
+  for (int i = tid; i < NCOL * (H / 4); i += THREADS) {
+    const int k = i / (H / 4), c = i % (H / 4);
+    cp_async16(sW2 + k * LDW2 + 4 * c, w2 + (size_t)(c0 + k) * H + 4 * c);
+  }
+  for (int i = tid; i < NCOL * A / 4; i += THREADS)
+    cp_async16(sW3 + 4 * i, w3 + (size_t)c0 * A + 4 * i);
+  cp_async_commit();
+  // while they fly: W1's zero rows under fc1's x columns past D, b3 and the
+  // mbarriers, each completing a phase on its own arrival plus the step's
+  // bytes
+  for (int i = tid; i < (L.w1rows - D) * LDW; i += THREADS) sW1[D * LDW + i] = 0.f;
+  for (int i = tid; i < A; i += THREADS) sB3[i] = b3[i];
+  if (tid == 0) {
+    mbar_init(&bar_h, 1);
+    mbar_init(&bar_p, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // every CTA of the cluster has started, its mbarriers ready, before any
+  // copies into another's shared memory
+  cluster.sync();
+
+  const int tiles = (B + R - 1) / R;
+  const int clusters = gridDim.x / C;
+  uint32_t phase = 0;      // parity of the mbarriers' current phase
+  bool first = true;
+  for (int tile = blockIdx.x / C; tile < tiles; tile += clusters) {
+    const int row0 = tile * R;
+    if (!first && K > 0) {
+      stage(row0, 0);
+      cp_async_commit();
+    }
+    if (first) cp_async_wait<1>();
+    else cp_async_wait<0>();
+    __syncthreads();
+    // the tile's x, split, with zero columns up to XK; and fc1's part that
+    // holds for the whole chain, b1 + f_s W1[A + TD.., cols], in fp32
+    for (int i = tid; i < R * XK; i += THREADS) {
+      const int r = i / XK, d = i % XK, row = row0 + r;
+      sIn[r * LDX + d] =
+          split_pair(row < B && d < A ? x[(size_t)row * A + d] : 0.f);
+    }
+    for (int i = tid; i < R * NCOL; i += THREADS) {
+      const int r = i / NCOL, c = i % NCOL, row = row0 + r;
+      float acc = sB1[c];
+      if (row < B)
+        for (int f = 0; f < F; ++f)
+          acc = fmaf(fs[(size_t)row * F + f], sW1[(A + TD + f) * LDW + c], acc);
+      sFsb[r * LDO + c] = acc;
+    }
+    if (K > 0) embed_part(0);
+    for (int s = 0; s < K; ++s, phase ^= 1) {
+      const float* st = sStep + (s & 1) * L.stage;
+      if (s > 0) cp_async_wait<0>();
+      if (tid == 0) {           // the bytes this step will receive
+        mbar_expect(&bar_h, tx_h);
+        mbar_expect(&bar_p, tx_p);
+      }
+      __syncthreads();
+      // fc1 + mish: x's part on the tensor cores (the two k-tiles of
+      // [x, 0 pad], one per k half), plus the parts above
+      {
+        float v[NT][2];
+        linear_half<NT>(sIn, LDX, XK / 16, sW1, LDW, sRed, v);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int n = n0 + 8 * j;
+          const float* fb = sFsb + row_h * LDO + n;
+          const float* tb = sTb + (s & 1) * round4(NCOL) + n;
+          const float2 h0 = split_pair(mish(v[j][0] + fb[0] + tb[0]));
+          const float2 h1 = split_pair(mish(v[j][1] + fb[1] + tb[1]));
+          *reinterpret_cast<float4*>(sH1 + row_h * LDB + n) =
+              make_float4(h0.x, h0.y, h1.x, h1.y);
+        }
+      }
+      if (first) {
+        cp_async_wait<0>();
+        first = false;
+      }
+      __syncthreads();          // h1's columns, W2 and W3
+      // fc2 over this CTA's rows of W2: partial sums for all H columns,
+      // kept by the CTA that owns them; warp w has columns w H/8 ..
+      {
+        float acc[NT2][4];
+        const int nb = warp * (H / WARPS);
+        mma_range<NT2, 1>(sH1, LDB, NCOL / 8, sW2, LDW2, nb, acc);
+        const int q = nb / NCOL;   // the owner of these columns
+        float* blk = (q == rank ? sRecv + rank * BLK : sOut + q * BLK);
+#pragma unroll
+        for (int j = 0; j < NT2; ++j) {
+          const int n = nb % NCOL + 8 * j + 2 * t;
+          *reinterpret_cast<float2*>(blk + g * LDO + n) =
+              make_float2(acc[j][0], acc[j][1]);
+          *reinterpret_cast<float2*>(blk + (g + 8) * LDO + n) =
+              make_float2(acc[j][2], acc[j][3]);
+        }
+        fence_to_async();
+      }
+      __syncthreads();
+      if (tid >= THREADS - (C - 1)) {   // block q to CTA q, one thread each
+        const int q = (rank + THREADS - tid) % C;
+        bulk_to_peer(sRecv + rank * BLK, sOut + q * BLK, BLK * 4, &bar_h, q);
+      }
+      if (s + 1 < K) {          // the next step's inputs, while the copies fly
+        stage(row0, s + 1);
+        cp_async_commit();
+      }
+      mbar_wait(&bar_h, phase);  // every CTA's partials of this CTA's columns
+      // h2 = mish(fc2 + b2), the partials summed in rank order
+      for (int i = tid; i < R * NCOL; i += THREADS) {
+        const int r = i / NCOL, c = i % NCOL;
+        float sum = sRecv[r * LDO + c];
+#pragma unroll
+        for (int q = 1; q < C; ++q) sum += sRecv[q * BLK + r * LDO + c];
+        sH2[r * LDO + c] = mish(sum + sB2[c]);
+      }
+      cp_async_wait<0>();       // the next step's inputs
+      __syncthreads();
+      // fc3 over this CTA's rows of W3: its partial, into its slot in every
+      // CTA
+      if (tid < RA) {
+        const int a = tid % A;
+        const float* h = sH2 + (tid / A) * LDO;
+        float p0 = 0.f, p1 = 0.f, p2 = 0.f, p3 = 0.f;
+#pragma unroll
+        for (int k = 0; k < NCOL; k += 4) {
+          p0 = fmaf(h[k], sW3[k * A + a], p0);
+          p1 = fmaf(h[k + 1], sW3[(k + 1) * A + a], p1);
+          p2 = fmaf(h[k + 2], sW3[(k + 2) * A + a], p2);
+          p3 = fmaf(h[k + 3], sW3[(k + 3) * A + a], p3);
+        }
+        sPart[rank * RA + tid] = (p0 + p1) + (p2 + p3);
+        fence_to_async();
+      }
+      if (s + 1 < K) embed_part(s + 1);   // threads past fc3's, mostly
+      __syncthreads();
+      if (tid >= THREADS - (C - 1))     // the partials to CTA q
+        bulk_to_peer(sPart + rank * RA, sPart + rank * RA, RA * 4, &bar_p,
+                     (rank + THREADS - tid) % C);
+      mbar_wait(&bar_p, phase);
+      // eps and the affine update, the same in every CTA: partials summed
+      // in rank order
+      if (tid < RA) {
+        float sum = sPart[tid];
+#pragma unroll
+        for (int q = 1; q < C; ++q) sum += sPart[q * RA + tid];
+        const float eps = tanhf(sum + sB3[tid % A]);
+        float2* xp = sIn + (tid / A) * LDX + tid % A;
+        const float xv = xp->x + xp->y;   // hi + lo is x exactly
+        *xp = split_pair(__fadd_rn(
+            __fadd_rn(__fmul_rn(st[RA + TD], xv), __fmul_rn(st[RA + TD + 1], eps)),
+            __fmul_rn(st[RA + TD + 2], st[tid])));
       }
     }
     __syncthreads();
+    if (rank == 0 && tid < RA) {
+      const int row = row0 + tid / A;
+      const float2 xp = sIn[(tid / A) * LDX + tid % A];
+      if (row < B) out[(size_t)row * A + tid % A] = tanhf(xp.x + xp.y);
+    }
+    __syncthreads();
   }
-  for (int i = tid; i < ROWS * A; i += THREADS) {
-    const int r = i / A, a = i % A, row = row0 + r;
-    if (row < B) out[(size_t)row * A + a] = tanhf(sIn[r * D + a]);
-  }
+  cp_async_wait<0>();  // K = 0: nothing waited for the weights
+  // no CTA leaves while copies into it may be in flight
+  cluster.sync();
 }
 
-size_t smem_bytes(int A, int F, int TD, int H) {
-  const int D = A + TD + F;
-  return sizeof(float) *
-         ((size_t)D * H + (size_t)H * A + 2 * H + A + ROWS * (D + 2 * H));
+cudaLaunchConfig_t config(int clusters, size_t smem, cudaStream_t s,
+                          cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * C);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
+
+// Shared memory a block may opt into on an H100 (sharedMemPerBlockOptin).
+constexpr int SMEM_OPTIN = 232448;
 
 }  // namespace
 
-extern "C" int denoiser_chain_smem_bytes(int A, int F, int TD, int H) {
-  return (int)smem_bytes(A, F, TD, H);
+// Shared-memory bytes of one CTA (the wrapper's plan computes the same and
+// checks that the two agree).
+extern "C" int denoiser_chain_smem_bytes(int A, int F, int TD) {
+  return (int)(sizeof(float) * make_layout(A, F, TD).total);
 }
 
-// All pointers are device pointers to contiguous fp32 arrays. Returns
-// cudaGetLastError() after the launch.
+// Opts the kernel into SMEM_OPTIN bytes of shared memory on the current
+// device and writes to *out how many clusters of C CTAs can be resident at
+// once (the grid's cap). Called once per plan and device, before the first
+// launch. Returns a CUDA error code.
+extern "C" int denoiser_chain_max_clusters(int A, int F, int TD, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      chain_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_OPTIN);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = config(
+      1, sizeof(float) * make_layout(A, F, TD).total, nullptr, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(out, chain_cluster_kernel, &cfg);
+}
+
+// All pointers are device pointers to contiguous fp32 arrays; w1, w2, w3,
+// b1 and b2 16-byte aligned; the hidden width is H. Returns the launch's
+// CUDA error code.
 extern "C" int denoiser_chain_launch(
     const float* x, const float* noises, const float* fs, const float* tembs,
     const float* cx, const float* ce, const float* cn, const float* w1,
     const float* b1, const float* w2, const float* b2, const float* w3,
-    const float* b3, float* out, int B, int A, int F, int TD, int H, int K,
-    void* stream) {
-  const size_t smem = smem_bytes(A, F, TD, H);
-  cudaError_t err = cudaFuncSetAttribute(
-      chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const float* b3, float* out, int B, int A, int F, int TD, int K,
+    int clusters, void* stream) {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg =
+      config(clusters, sizeof(float) * make_layout(A, F, TD).total,
+             static_cast<cudaStream_t>(stream), &attr);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, chain_cluster_kernel, x, noises,
+                                       fs, tembs, cx, ce, cn, w1, b1, w2, b2,
+                                       w3, b3, out, B, A, F, TD, K);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + ROWS - 1) / ROWS), block(THREADS);
-  chain_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, noises, fs, tembs, cx, ce, cn, w1, b1, w2, b2, w3, b3, out, B, A, F,
-      TD, H, K);
   return (int)cudaGetLastError();
 }

@@ -18,6 +18,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -75,6 +77,13 @@ def build(names: Iterable[str]) -> Dict[str, dict]:
         os.replace(tmp, out)
         report[name] = {"seconds": time.perf_counter() - t0, "log": log}
     return report
+
+
+def raw_stream(device_index: int) -> int:
+    """The current CUDA stream of a device as the address a launcher takes,
+    without building a `torch.cuda.Stream` object (read as PyTorch's own
+    kernel launchers read it)."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -3,11 +3,19 @@
 
 `denoiser_chain` replaces the TPU kernel
 `repro/kernels/denoiser/kernel.py::denoiser_chain` (`_chain_kernel`). What
-bounds it on an H100: fp32 operations, ~160 kFLOP per batch row and step at
-the paper's widths, against ~317 KB of weights read once. The kernel keeps a
-block's rows, their activations, W1, W3 and the biases in shared memory for
-all K steps and streams W2 from L2; there is no cuBLAS or torch.matmul
-inside the chain.
+bounds it on an H100: operations, ~160 kFLOP per batch row and step at the
+paper's widths, against ~317 KB of weights. The kernel runs on a thread-block
+cluster of 8 CTAs that split the hidden width (256, fixed at compile time):
+each keeps its slices of W1, W2 and W3 resident in shared memory for all K
+steps (loaded with cp.async), runs fc1 and fc2 on the tensor cores in
+3xTF32 (fp32 accuracy; `torch.backends.cuda.matmul.allow_tf32` plays no
+part) and exchanges fc2's and fc3's partial sums with bulk copies into the
+other CTAs' shared memory, counted on mbarriers. `chain_plan` gives the
+cluster size C, the row tile R and the shared memory from the shapes, or
+raises naming what does not fit; it is pure Python, so the CPU tests reach
+it. There is no cuBLAS or torch.matmul inside the chain. A call checks its
+13 tensors against shapes computed once per call shape
+(`_chain_launch_plan`).
 
 `denoiser_step` replaces `repro/kernels/denoiser/kernel.py::denoiser_step`
 (`_denoiser_kernel`), the distilled sampler's one call per decision. At the
@@ -22,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -44,6 +53,72 @@ def _check(kernel: str, shapes, device):
                 f"{tuple(t.shape)} on {t.device}")
 
 
+#: the chain kernel's row tile (one m16 tile of mma.sync), threads per CTA,
+#: cluster size and hidden width, all fixed in csrc/denoiser_chain.cu
+CHAIN_ROWS = 16
+CHAIN_THREADS = 256
+CHAIN_C = 8
+CHAIN_H = 256
+
+
+class ChainPlan(NamedTuple):
+    """How the chain kernel covers a call: clusters of `C` CTAs, each CTA
+    owning H / C hidden columns; a cluster walks row tiles of `R` rows;
+    `tiles` = ceil(B / R); `smem_bytes` per CTA."""
+    C: int
+    R: int
+    tiles: int
+    smem_bytes: int
+
+
+def chain_smem_bytes(A: int, F: int, t_dim: int) -> int:
+    """Shared memory of one CTA of the chain kernel, bytes: `make_layout`
+    in csrc/denoiser_chain.cu, region for region."""
+    def r4(n):
+        return (n + 3) // 4 * 4
+
+    def pad16_4(n):                 # the least m >= n with m = 4 mod 16
+        return (n + 11) // 16 * 16 + 4
+    R, C, H = CHAIN_ROWS, CHAIN_C, CHAIN_H
+    ncol = H // C
+    blk = R * (ncol + 4)          # R x ncol, padded
+    floats = (r4(max(16, A + t_dim + F) * (ncol + 8)) + r4(ncol * (H + 8))
+              + r4(ncol * A) + 4 * r4(ncol) + r4(A) + 2 * R * pad16_4(16)
+              + 2 * R * pad16_4(ncol) + (2 * C + 2) * blk
+              + 2 * r4(R * A + t_dim + 3) + r4(C * R * A) + 16 * ncol + 4)
+    return 4 * floats
+
+
+def chain_plan(B: int, A: int, F: int, t_dim: int, H: int) -> ChainPlan:
+    """The (C, R) plan of the chain kernel for x (B, A), f_s (B, F), tembs
+    (K, t_dim) and hidden width H.
+
+    A cluster of C = 8 CTAs owns R = 16 rows; CTA r owns hidden columns
+    [32 r, 32 (r+1)), and its slices of W1, W2 and W3 must fit in
+    SMEM_LIMIT bytes. The kernel is compiled for the paper's H = 256 only.
+    One thread per (row, action dim) and per (row, embedding dim) of a tile
+    bounds A and t_dim by 256 / R = 16. A B = 1 decision runs on 8 SMs and
+    B = 256 (16 tiles) on 128. Raises ValueError naming the constraint
+    where no plan fits."""
+    if min(B, A, F, t_dim, H) < 1:
+        raise ValueError(f"denoiser_chain kernel: B, A, F, t_dim and H must "
+                         f"be >= 1; got B={B} A={A} F={F} t_dim={t_dim} "
+                         f"H={H}")
+    if H != CHAIN_H:
+        raise ValueError(f"denoiser_chain kernel: H={H}; the kernel is "
+                         f"compiled for H={CHAIN_H} only")
+    if max(A, t_dim) * CHAIN_ROWS > CHAIN_THREADS:
+        raise ValueError(f"denoiser_chain kernel: A={A} and t_dim={t_dim} "
+                         f"must each be <= {CHAIN_THREADS // CHAIN_ROWS}")
+    smem = chain_smem_bytes(A, F, t_dim)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"denoiser_chain kernel: {smem} bytes of shared "
+                         f"memory per CTA at A={A} F={F} t_dim={t_dim}, "
+                         f"over {SMEM_LIMIT}")
+    return ChainPlan(C=CHAIN_C, R=CHAIN_ROWS, tiles=-(-B // CHAIN_ROWS),
+                     smem_bytes=smem)
+
+
 @functools.lru_cache(maxsize=None)
 def _chain_lib():
     lib = KB.load("denoiser_chain")
@@ -51,9 +126,44 @@ def _chain_lib():
                                           + [ctypes.c_int] * 6
                                           + [ctypes.c_void_p])
     lib.denoiser_chain_launch.restype = ctypes.c_int
-    lib.denoiser_chain_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.denoiser_chain_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.denoiser_chain_smem_bytes.restype = ctypes.c_int
+    lib.denoiser_chain_max_clusters.argtypes = ([ctypes.c_int] * 3
+                                                + [ctypes.c_void_p])
+    lib.denoiser_chain_max_clusters.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _chain_launch_plan(device_index: int, B: int, A: int, F: int, TD: int,
+                       H: int, K: int):
+    """(plan, clusters in the grid, expected shapes in argument order) for
+    one call shape on one card, computed once."""
+    plan = chain_plan(B, A, F, TD, H)
+    lib = _chain_lib()
+    smem = lib.denoiser_chain_smem_bytes(A, F, TD)
+    if smem != plan.smem_bytes:
+        raise RuntimeError("csrc/denoiser_chain.cu and chain_plan disagree on "
+                           f"the shared memory: {smem} != {plan.smem_bytes}")
+    resident = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = lib.denoiser_chain_max_clusters(A, F, TD,
+                                              ctypes.byref(resident))
+    if err != 0:
+        raise RuntimeError(f"denoiser_chain occupancy query failed: CUDA "
+                           f"error {err}")
+    if resident.value < 1:
+        raise ValueError(f"denoiser_chain kernel: a cluster of {plan.C} CTAs "
+                         f"with {smem} bytes each cannot be resident")
+    D = A + TD + F
+    shapes = tuple(torch.Size(s) for s in (
+        (B, A), (K, B, A), (B, F), (K, TD), (K,), (K,), (K,), (D, H), (H,),
+        (H, H), (H,), (H, A), (A,)))
+    return plan, min(plan.tiles, resident.value), shapes
+
+
+_CHAIN_ARGS = ("x", "noises", "f_s", "tembs", "coef_x", "coef_e", "coef_n",
+               "w1", "b1", "w2", "b2", "w3", "b3")
 
 
 def denoiser_chain(x, noises, f_s, tembs, coef_x, coef_e, coef_n,
@@ -61,32 +171,35 @@ def denoiser_chain(x, noises, f_s, tembs, coef_x, coef_e, coef_n,
     """tanh(x_0) (B, A) after K affine steps; x (B, A), noises (K, B, A),
     f_s (B, F), tembs (K, t_dim), coef_* (K,), w1 (A+t_dim+F, H), w2 (H, H),
     w3 (H, A), biases (H,), (H,), (A,)."""
-    if x.device.type == "cpu":
-        return denoiser_chain_ref(x, noises, f_s, tembs, coef_x, coef_e,
-                                  coef_n, w1, b1, w2, b2, w3, b3)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return denoiser_chain_ref(x, noises, f_s, tembs, coef_x, coef_e,
+                                      coef_n, w1, b1, w2, b2, w3, b3)
         raise ValueError(f"denoiser_chain runs on cpu or cuda, not {x.device}")
+    dev = x.get_device()
     B, A = x.shape
     K, TD = tembs.shape
-    F = f_s.shape[1]
-    H = w1.shape[1]
-    shapes = {"x": (x, (B, A)), "noises": (noises, (K, B, A)),
-              "f_s": (f_s, (B, F)), "tembs": (tembs, (K, TD)),
-              "coef_x": (coef_x, (K,)), "coef_e": (coef_e, (K,)),
-              "coef_n": (coef_n, (K,)), "w1": (w1, (A + TD + F, H)),
-              "b1": (b1, (H,)), "w2": (w2, (H, H)), "b2": (b2, (H,)),
-              "w3": (w3, (H, A)), "b3": (b3, (A,))}
-    _check("denoiser_chain", shapes, x.device)
-    lib = _chain_lib()
-    smem = lib.denoiser_chain_smem_bytes(A, F, TD, H)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"denoiser_chain kernel needs {smem} bytes of shared "
-                         f"memory at A={A} F={F} H={H}; a block has "
-                         f"{SMEM_LIMIT}")
-    out = torch.empty((B, A), dtype=torch.float32, device=x.device)
-    ptrs = [t.data_ptr() for t, _ in shapes.values()] + [out.data_ptr()]
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.denoiser_chain_launch(*ptrs, B, A, F, TD, H, K, stream)
+    plan, clusters, shapes = _chain_launch_plan(
+        dev, B, A, f_s.shape[-1], TD, w1.shape[-1], K)
+    args = (x, noises, f_s, tembs, coef_x, coef_e, coef_n, w1, b1, w2, b2,
+            w3, b3)
+    f32 = torch.float32
+    for i, (t, shape) in enumerate(zip(args, shapes)):
+        if t.dtype is not f32 or t.get_device() != dev or t.shape != shape \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"denoiser_chain kernel: {_CHAIN_ARGS[i]} must be a "
+                f"contiguous float32 tensor of shape {tuple(shape)} on "
+                f"{x.device}; got {t.dtype} {tuple(t.shape)} on {t.device}")
+    ptrs = [t.data_ptr() for t in args]
+    for i in range(7, 12):              # w1, b1, w2, b2, w3: cp.async 16 B
+        if ptrs[i] % 16:
+            raise ValueError(f"denoiser_chain kernel: {_CHAIN_ARGS[i]} must "
+                             f"start on 16 bytes")
+    out = torch.empty((B, A), dtype=f32, device=x.device)
+    err = _chain_lib().denoiser_chain_launch(
+        *ptrs, out.data_ptr(), B, A, shapes[2][1], TD, K, clusters,
+        KB.raw_stream(dev))
     if err != 0:
         raise RuntimeError(
             f"denoiser_chain kernel launch failed: CUDA error {err}")

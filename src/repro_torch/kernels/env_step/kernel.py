@@ -7,15 +7,23 @@ moves under a MB. The kernel therefore gives each env one warp (lanes stride
 over servers and tasks, reductions are warp shuffles, no block barrier) and
 does the whole decision, the next queue and the observation in one launch.
 
-For CPU tensors the wrapper takes the plain version (`ref.env_step_ref`);
-for CUDA tensors it launches the kernel or raises.
+The kernel takes a few microseconds; a call's host work took far longer, so
+`EnvStepPlan` binds the kernel to one rollout's constants: the statics are
+checked and their slots of a persistent pointer table written once, and a
+decision checks only its 16 per-decision tensors, allocates one buffer per
+output dtype, carves the 18 outputs from them and launches. `env_step`
+builds a plan per call; `batch_rollout` keeps one for the whole episode.
+
+A plan on the CPU checks the same tensors and takes the plain version
+(`ref.env_step_ref`); on the card it launches the kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict
+from typing import Dict, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import env as EV
@@ -74,80 +82,161 @@ def _check(name, x, dtype, shape, device):
             f"{x.device} (contiguous={x.is_contiguous()})")
 
 
+# slots of the kernel's pointer table (the order of `_INPUTS`, then the
+# outputs in the order of EnvState, QueueView, obs, reward, done)
+_SLOT = {n: i for i, n in enumerate(_INPUTS)}
+_STATIC_INPUTS = ("arr", "c", "model", "noise", "step_base", "init_base",
+                  "scale")
+_STATIC_KEYS = ("arr_time", "c", "model", "noise", "step_base", "init_base",
+                "scale")
+_FAULT_INPUTS = ("fds", "fde", "fslow", "fcold")
+
+
+_F32, _I32, _B8 = torch.float32, torch.int32, torch.bool
+_DTYPES = {"f": _F32, "i": _I32, "b": _B8}
+_ITEMSIZE = {"f": 4, "i": 4, "b": 1}
+
+
+class _Layout(NamedTuple):
+    statics: tuple   # (input name, statics key, dtype, shape)
+    dyn: tuple       # (table slot, name, dtype, shape), per decision
+    outs: tuple      # (table slot, buffer, shape, stride, offset)
+    sizes: Dict      # elements of each output buffer
+
+
+@functools.lru_cache(maxsize=None)
+def _layout(E: int, K: int, l: int, A: int, B: int, F: int) -> _Layout:
+    """What a plan checks and carves for B envs of E servers, K tasks, l
+    queue slots, A action dims and F fault columns (0: no faults), built
+    once per shape."""
+    statics = tuple(zip(_STATIC_INPUTS, _STATIC_KEYS,
+                        (_F32, _I32, _I32, _F32, _F32, _F32, _F32),
+                        ((B, K),) * 7))
+    if F:
+        statics += tuple(zip(_FAULT_INPUTS, EV.FAULT_COLS, (_F32,) * 4,
+                             ((B, E, F), (B, E, F), (B, E), (B, 1))))
+    # the per-decision inputs, in the order of (*state, action, *queue)
+    dyn = (("time", _F32, (B,)), ("free", _F32, (B, E)),
+           ("smodel", _I32, (B, E)), ("sgang", _I32, (B, E)),
+           ("sgsize", _I32, (B, E)), ("tstatus", _I32, (B, K)),
+           ("tstart", _F32, (B, K)), ("tfinish", _F32, (B, K)),
+           ("tsteps", _I32, (B, K)), ("tqual", _F32, (B, K)),
+           ("treload", _I32, (B, K)), ("staken", _I32, (B,)),
+           ("action", _F32, (B, A)), ("qidx", _I32, (B, l)),
+           ("qvalid", _B8, (B, l)), ("qqueued", _B8, (B, K)))
+    # the outputs in the kernel's order: EnvState, QueueView, obs, reward,
+    # done, each in its dtype's buffer at a running offset
+    outs = (("f", (B,)), ("f", (B, E)), ("i", (B, E)), ("i", (B, E)),
+            ("i", (B, E)), ("i", (B, K)), ("f", (B, K)), ("f", (B, K)),
+            ("i", (B, K)), ("f", (B, K)), ("i", (B, K)), ("i", (B,)),
+            ("i", (B, l)), ("b", (B, l)), ("b", (B, K)),
+            ("f", (B, 3, E + l)), ("f", (B,)), ("b", (B,)))
+    sizes = {"f": 0, "i": 0, "b": 0}
+    carved = []
+    for j, (buf, shape) in enumerate(outs):
+        stride = tuple(int(np.prod(shape[i + 1:])) for i in range(len(shape)))
+        carved.append((len(_INPUTS) + j, buf, shape, stride, sizes[buf]))
+        sizes[buf] += int(np.prod(shape))
+    return _Layout(statics, tuple((_SLOT[n], n, dt, torch.Size(s))
+                                  for n, dt, s in dyn), tuple(carved), sizes)
+
+
+class EnvStepPlan:
+    """The env_step kernel bound to one rollout's constants: (cfg, statics,
+    B, F, device), checked once.
+
+    Built once, it holds the kernel's config struct and a persistent
+    pointer table whose static slots (the traces' per-task constants and
+    fault columns) are written here. Each call then checks only the 16
+    per-decision tensors (the 12 state fields, the action and the 3 queue
+    fields) against a precomputed spec, allocates the 18 outputs as one
+    float32, one int32 and one bool buffer carved into contiguous views,
+    writes the per-decision slots and launches. The buffers are fresh on
+    every call, so outputs a caller keeps are never overwritten.
+
+    A caller that keeps the plan keeps the statics alive (the table points
+    at them). This is also the fixed table a CUDA graph capture of the
+    decision would start from."""
+
+    def __init__(self, cfg: EV.EnvConfig, statics: Dict, B: int, device=None):
+        dev = torch.device(device) if device is not None \
+            else statics["arr_time"].device
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"env_step runs on cpu or cuda, not {dev}")
+        if cfg.queue_window > cfg.max_tasks:
+            raise ValueError(f"queue_window {cfg.queue_window} exceeds "
+                             f"max_tasks {cfg.max_tasks}")
+        self.faulty = EV.has_faults(statics)
+        F = statics["f_down_start"].shape[2] if self.faulty else 0
+        self.cfg, self.statics, self.B, self.device = cfg, statics, B, dev
+        self._dev = dev.index if dev.type == "cuda" else -1   # get_device()
+        lay = _layout(cfg.num_servers, cfg.max_tasks, cfg.queue_window,
+                      cfg.action_dim, B, F)
+        self._table = (ctypes.c_void_p * _N_PTRS)()
+        for name, key, dtype, shape in lay.statics:
+            _check(name, statics[key], dtype, shape, dev)
+            self._table[_SLOT[name]] = statics[key].data_ptr()
+        self._dyn, self._outs, self._sizes = lay.dyn, lay.outs, lay.sizes
+        self._cfg = ctypes.byref(_ccfg(cfg, F))
+
+    def buffers(self):
+        """Fresh output buffers {"f": float32, "i": int32, "b": bool}."""
+        return {k: torch.empty(n, dtype=_DTYPES[k], device=self.device)
+                for k, n in self._sizes.items()}
+
+    def carve(self, bufs):
+        """The 18 outputs as contiguous, disjoint views of `bufs` (one
+        `as_strided` each, the cheapest view to make), in the kernel's
+        order, with their addresses written into the table."""
+        base = {k: b.data_ptr() for k, b in bufs.items()}
+        tab, size = self._table, _ITEMSIZE
+        out = []
+        for slot, buf, shape, stride, off in self._outs:
+            tab[slot] = base[buf] + off * size[buf]
+            out.append(bufs[buf].as_strided(shape, stride, off))
+        return out
+
+    def check(self, state: EV.EnvState, action, q: EV.QueueView):
+        """Hold the 16 per-decision tensors to the plan's spec, raising
+        ValueError naming the first that differs, and write their slots."""
+        tab, dev = self._table, self._dev
+        for t, (slot, name, dtype, shape) in zip((*state, action, *q),
+                                                 self._dyn):
+            if t.dtype is not dtype or t.get_device() != dev \
+                    or t.shape != shape or not t.is_contiguous():
+                raise ValueError(
+                    f"env_step kernel: {name} must be a contiguous {dtype} "
+                    f"tensor of shape {tuple(shape)} on {self.device}; got "
+                    f"{t.dtype} {tuple(t.shape)} on {t.device} "
+                    f"(contiguous={t.is_contiguous()})")
+            tab[slot] = t.data_ptr()
+
+    def __call__(self, state: EV.EnvState, action, q: EV.QueueView):
+        """One fused decision: (state', queue', obs', reward, done). A plan
+        on the CPU checks the same tensors and takes the plain version."""
+        self.check(state, action, q)
+        if self._dev < 0:
+            return env_step_ref(self.cfg, self.statics, state, action, q)
+        o = self.carve(self.buffers())
+        err = _lib().env_step_launch(self._cfg, self._table, self.B,
+                                     int(self.faulty),
+                                     KB.raw_stream(self._dev))
+        if err != 0:
+            raise RuntimeError(
+                f"env_step kernel launch failed: CUDA error {err}")
+        env_step.launches += 1
+        return (EV.EnvState(*o[:12]), EV.QueueView(*o[12:15]), o[15], o[16],
+                o[17])
+
+
 def env_step(cfg: EV.EnvConfig, statics: Dict, state: EV.EnvState, action,
              q: EV.QueueView):
-    """One fused decision for B envs: (state', queue', obs', reward, done)."""
-    if action.device.type == "cpu":
-        return env_step_ref(cfg, statics, state, action, q)
-    if action.device.type != "cuda":
-        raise ValueError(f"env_step runs on cpu or cuda, not {action.device}")
-    E, K, l, A = cfg.num_servers, cfg.max_tasks, cfg.queue_window, cfg.action_dim
-    if l > K:
-        raise ValueError(f"queue_window {l} exceeds max_tasks {K}")
-    B = action.shape[0]
-    dev = action.device
-    f32, i32, b8 = torch.float32, torch.int32, torch.bool
-    faulty = EV.has_faults(statics)
-    F = statics["f_down_start"].shape[2] if faulty else 0
-    ins = {
-        "time": (state.time, f32, (B,)),
-        "free": (state.server_free_at, f32, (B, E)),
-        "smodel": (state.server_model, i32, (B, E)),
-        "sgang": (state.server_gang, i32, (B, E)),
-        "sgsize": (state.server_gang_size, i32, (B, E)),
-        "tstatus": (state.task_status, i32, (B, K)),
-        "tstart": (state.task_start, f32, (B, K)),
-        "tfinish": (state.task_finish, f32, (B, K)),
-        "tsteps": (state.task_steps, i32, (B, K)),
-        "tqual": (state.task_quality, f32, (B, K)),
-        "treload": (state.task_reload, i32, (B, K)),
-        "staken": (state.steps_taken, i32, (B,)),
-        "arr": (statics["arr_time"], f32, (B, K)),
-        "c": (statics["c"], i32, (B, K)),
-        "model": (statics["model"], i32, (B, K)),
-        "noise": (statics["noise"], f32, (B, K)),
-        "step_base": (statics["step_base"], f32, (B, K)),
-        "init_base": (statics["init_base"], f32, (B, K)),
-        "scale": (statics["scale"], f32, (B, K)),
-        "action": (action, f32, (B, A)),
-        "qidx": (q.idx, i32, (B, l)),
-        "qvalid": (q.valid, b8, (B, l)),
-        "qqueued": (q.queued, b8, (B, K)),
-    }
-    if faulty:
-        ins.update({
-            "fds": (statics["f_down_start"], f32, (B, E, F)),
-            "fde": (statics["f_down_end"], f32, (B, E, F)),
-            "fslow": (statics["f_slow"], f32, (B, E)),
-            "fcold": (statics["f_cold"], f32, (B, 1)),
-        })
-    for name, (x, dtype, shape) in ins.items():
-        _check(name, x, dtype, shape, dev)
-
-    def empty(dtype, *shape):
-        return torch.empty((B,) + shape, dtype=dtype, device=dev)
-
-    new_state = EV.EnvState(
-        time=empty(f32), server_free_at=empty(f32, E),
-        server_model=empty(i32, E), server_gang=empty(i32, E),
-        server_gang_size=empty(i32, E), task_status=empty(i32, K),
-        task_start=empty(f32, K), task_finish=empty(f32, K),
-        task_steps=empty(i32, K), task_quality=empty(f32, K),
-        task_reload=empty(i32, K), steps_taken=empty(i32))
-    new_q = EV.QueueView(idx=empty(i32, l), valid=empty(b8, l),
-                         queued=empty(b8, K))
-    obs, reward, done = empty(f32, 3, E + l), empty(f32), empty(b8)
-    outs = list(new_state) + list(new_q) + [obs, reward, done]
-    ptrs = [ins[n][0].data_ptr() if n in ins else None for n in _INPUTS]
-    ptrs += [o.data_ptr() for o in outs]
-    table = (ctypes.c_void_p * _N_PTRS)(*ptrs)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().env_step_launch(ctypes.byref(_ccfg(cfg, F)), table, B,
-                                 int(faulty), stream)
-    if err != 0:
-        raise RuntimeError(f"env_step kernel launch failed: CUDA error {err}")
-    env_step.launches += 1
-    return new_state, new_q, obs, reward, done
+    """One fused decision for B envs: (state', queue', obs', reward, done),
+    through an `EnvStepPlan` built for this one call."""
+    return EnvStepPlan(cfg, statics, action.shape[0], action.device)(
+        state, action, q)
 
 
 env_step.launches = 0

@@ -1,0 +1,192 @@
+"""The host-side plans of two CUDA kernels of the port, on the CPU.
+
+* `chain_plan` (kernels/denoiser/kernel.py) gives the denoiser_chain
+  kernel's cluster size C, row tile R and shared memory; it is pure
+  Python. Every shape the port's paths give the chain must fit one CTA's
+  shared memory with C dividing H into 32 columns, and an unsupported H
+  or an overflow raises.
+* `EnvStepPlan` (kernels/env_step/kernel.py) binds the env_step kernel to
+  one rollout's constants. A plan on the CPU checks the same tensors and
+  takes the plain version, so its spec checks, its output carving and its
+  pointer table are all reachable here; the launch itself runs only on the
+  card (`chip_smoke.py` phase 2).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import env as EV
+from repro_torch.core import workload as WL
+from repro_torch.kernels.denoiser import kernel as DK
+from repro_torch.kernels.env_step import kernel as EK
+from repro_torch.kernels.env_step import ops as EKO
+from repro_torch.kernels.env_step.ref import env_step_ref
+
+A, T_DIM, H = 10, 16, 256
+
+
+# ------------------------------------------------------------- chain plan
+@pytest.mark.parametrize("F", [12, 16, 20])
+@pytest.mark.parametrize("B", [1, 3, 16, 256, 300, 4096])
+def test_chain_plan_fits_every_path_shape(B, F):
+    """Rollouts at 256, collection at 16, serving at 1, the distiller at
+    its N = 4096; F of the 4-, 8- and 12-server cells."""
+    plan = DK.chain_plan(B, A, F, T_DIM, H)
+    assert plan.smem_bytes <= 232448 == DK.SMEM_LIMIT
+    assert H % plan.C == 0 and H // plan.C == 32
+    assert plan.C == 8 and plan.R == 16
+    assert plan.tiles == -(-B // 16) and (plan.tiles - 1) * 16 < B
+    assert plan.smem_bytes == DK.chain_smem_bytes(A, F, T_DIM)
+
+
+def test_chain_plan_covers_the_card_at_the_main_path_shape():
+    """B = 256 gives 16 clusters of 8 CTAs, 128 of 132 SMs; a B = 1
+    serving decision runs on 8 SMs."""
+    plan = DK.chain_plan(256, A, 16, T_DIM, H)
+    assert (plan.C, plan.tiles, plan.C * plan.tiles) == (8, 16, 128)
+    assert DK.chain_plan(1, A, 16, T_DIM, H).C == 8
+
+
+@pytest.mark.parametrize("H_", [48, 64, 96, 128, 512])
+def test_chain_plan_raises_on_unsupported_width(H_):
+    with pytest.raises(ValueError, match=f"H={H_}; the kernel is compiled "
+                       f"for H=256 only"):
+        DK.chain_plan(256, A, 16, T_DIM, H_)
+
+
+def test_chain_plan_raises_when_shared_memory_overflows():
+    """W1's slice grows with F: past F = 846 a CTA's slices no longer fit
+    a block's shared memory."""
+    assert DK.chain_smem_bytes(A, 846, T_DIM) <= DK.SMEM_LIMIT \
+        < DK.chain_smem_bytes(A, 847, T_DIM)
+    with pytest.raises(ValueError, match="bytes of shared memory per CTA at "
+                       "A=10 F=2000"):
+        DK.chain_plan(256, A, 2000, T_DIM, H)
+
+
+def test_chain_plan_rejects_bad_arguments():
+    with pytest.raises(ValueError, match="B=0"):
+        DK.chain_plan(0, A, 16, T_DIM, H)
+    with pytest.raises(ValueError, match="must each be <= 16"):
+        DK.chain_plan(256, 17, 16, T_DIM, H)
+    with pytest.raises(ValueError, match="must each be <= 16"):
+        DK.chain_plan(256, A, 16, 32, H)
+
+
+# ------------------------------------------------------------ env_step plan
+def _setup(E=8, K=32, l=8, B=6, faults=False, seed=0):
+    cfg = EV.EnvConfig(num_servers=E, max_tasks=K, queue_window=l)
+    g = torch.Generator().manual_seed(seed)
+    tc = WL.TraceConfig(num_tasks=K, arrival_rate=0.2, max_servers=E)
+    traces = WL.make_trace_batch(tc, B, generator=g, device="cpu")
+    if faults:
+        rng = np.random.default_rng(seed)
+        ds = rng.uniform(0.0, 80.0, (B, E, 3)).astype(np.float32)
+        traces["f_down_start"] = torch.from_numpy(ds)
+        traces["f_down_end"] = torch.from_numpy(ds + 5.0)
+        traces["f_slow"] = torch.ones((B, E))
+        traces["f_cold"] = torch.ones((B, 1))
+    state = EV.reset(cfg, B, device="cpu")
+    statics = EV.decision_statics(cfg, traces)
+    q, _ = EV.reset_view(cfg, traces, state)
+    action = torch.rand((B, cfg.action_dim), generator=g)
+    return cfg, statics, state, action, q
+
+
+@pytest.mark.parametrize("faults", [False, True], ids=["plain", "faults"])
+def test_env_step_plan_views_match_the_plain_outputs(faults):
+    """The 18 carved views have the plain version's dtype and shape, in
+    the kernel's output order, and the table holds their addresses."""
+    cfg, statics, state, action, q = _setup(faults=faults)
+    plan = EK.EnvStepPlan(cfg, statics, 6)
+    views = plan.carve(plan.buffers())
+    want = env_step_ref(cfg, statics, state, action, q)
+    flat = list(want[0]) + list(want[1]) + list(want[2:])
+    assert len(views) == len(flat) == 18
+    for j, (v, w) in enumerate(zip(views, flat)):
+        assert v.dtype == w.dtype and v.shape == w.shape, j
+        assert v.is_contiguous()
+        assert plan._table[len(EK._INPUTS) + j] == v.data_ptr()
+
+
+def test_env_step_plan_views_are_disjoint_and_fresh():
+    cfg, statics, *_ = _setup(B=5)
+    plan = EK.EnvStepPlan(cfg, statics, 5)
+    bufs = plan.buffers()
+    assert {b.dtype for b in bufs.values()} == {torch.float32, torch.int32,
+                                                torch.bool}
+    views = plan.carve(bufs)
+    spans = {}
+    for v in views:
+        lo = v.data_ptr()
+        spans.setdefault(v.dtype, []).append((lo, lo + v.numel()
+                                              * v.element_size()))
+    total = 0
+    for dtype, s in spans.items():
+        s.sort()
+        assert all(a[1] <= b[0] for a, b in zip(s, s[1:])), dtype
+        total += sum(hi - lo for lo, hi in s)
+    # the views tile the three buffers exactly
+    assert total == sum(b.numel() * b.element_size() for b in bufs.values())
+    again = plan.carve(plan.buffers())
+    ptrs = {v.untyped_storage().data_ptr() for v in views}
+    assert not ptrs & {v.untyped_storage().data_ptr() for v in again}
+
+
+def test_env_step_plan_on_cpu_equals_plain_version():
+    cfg, statics, state, action, q = _setup(seed=3)
+    got = EK.EnvStepPlan(cfg, statics, 6)(state, action, q)
+    want = env_step_ref(cfg, statics, state, action, q)
+    for g, w in zip(got[0] + got[1] + got[2:], want[0] + want[1] + want[2:]):
+        assert torch.equal(g, w)
+    step = EKO.env_stepper(cfg, statics, 6, "cpu")
+    for g, w in zip(step(state, action, q)[0], want[0]):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("name, bad", [
+    ("time", lambda s, a, q: (s._replace(time=s.time.double()), a, q)),
+    ("tsteps", lambda s, a, q: (s._replace(task_steps=s.task_steps[:, :-1]),
+                                a, q)),
+    ("free", lambda s, a, q: (s._replace(
+        server_free_at=s.server_free_at.t().contiguous().t()), a, q)),
+    ("staken", lambda s, a, q: (s._replace(
+        steps_taken=s.steps_taken.long()), a, q)),
+    ("action", lambda s, a, q: (s, a[:-1], q)),
+    ("qvalid", lambda s, a, q: (s, a, q._replace(valid=q.valid.int()))),
+    ("qqueued", lambda s, a, q: (s, a, q._replace(queued=q.queued[:, ::2]))),
+])
+def test_env_step_plan_check_names_the_wrong_tensor(name, bad):
+    cfg, statics, state, action, q = _setup()
+    plan = EK.EnvStepPlan(cfg, statics, 6)
+    with pytest.raises(ValueError, match=f"env_step kernel: {name} must be"):
+        plan(*bad(state, action, q))
+
+
+@pytest.mark.parametrize("key, name", [("c", "c"), ("scale", "scale"),
+                                       ("f_slow", "fslow")])
+def test_env_step_plan_checks_statics_once(key, name):
+    cfg, statics, *_ = _setup(faults=True)
+    statics = dict(statics)
+    statics[key] = statics[key][:-1]
+    with pytest.raises(ValueError, match=f"env_step kernel: {name} must be"):
+        EK.EnvStepPlan(cfg, statics, 6)
+
+
+def test_env_stepper_rejects_unknown_impl():
+    cfg, statics, *_ = _setup()
+    with pytest.raises(ValueError, match="impl must be"):
+        EKO.env_stepper(cfg, statics, 6, "cpu", impl="fast")
+
+
+def test_env_step_takes_one_cpu_path_through_the_plan():
+    """`env_stepper` gives a plan on the CPU too, and `env_step_fused`
+    builds one per call, so both check the same tensors before the plain
+    version runs."""
+    cfg, statics, state, action, q = _setup()
+    assert isinstance(EKO.env_stepper(cfg, statics, 6, "cpu"), EK.EnvStepPlan)
+    with pytest.raises(ValueError, match="env_step kernel: action must be"):
+        EKO.env_step_fused(cfg, statics, state, action.double(), q)
+    got = EKO.env_step_fused(cfg, statics, state, action, q, impl="ref")
+    want = env_step_ref(cfg, statics, state, action, q)
+    assert all(torch.equal(g, w) for g, w in zip(got[0], want[0]))

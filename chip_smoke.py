@@ -6,7 +6,11 @@ toolkit: `python3 chip_smoke.py`. It builds the hand-written kernels from
 `src/repro_torch/csrc` into `build/` (one nvcc per source, in parallel) and
 runs, one line per result:
 
-1. the card's name and power limit, and the kernels' build time;
+1. the card's name and power limit, the kernels' build time, and per
+   kernel function the count of `wgmma`, TMA-load and `mma.sync`
+   instructions in its SASS (cuobjdump): every flash_attention
+   instantiation must issue `wgmma` and TMA loads, both denoiser kernels
+   `mma.sync`;
 2. the env_step kernel against its plain PyTorch version on random states
    (B = 256, E in {8, 12}, K = 32, l = 8, one and three models, with and
    without fault columns), then through one `EnvStepPlan` kept over three
@@ -26,10 +30,13 @@ runs, one line per result:
 6. a timing row per kernel: device and call time, plain-version time,
    bound and (flash_attention) `scaled_dot_product_attention`'s time, at
    the main path's shapes (ssm_scan at Jamba's 2048-token prefill); the
-   two redesigned kernels (env_step's call, the chain) also get CUDA-event
-   device time and a note of what changed;
+   four redesigned kernels (env_step's call, the chain, denoiser_step and
+   flash_attention) also get CUDA-event device time and a note of what
+   changed, and flash_attention is timed at tinyllama's and Jamba's
+   prefill in fp32 and bf16, SDPA beside each;
 7. the denoiser_step kernel against its plain version (A = 10, H = 256,
-   F in {16, 20}, B in {256, 300, 4096}, and a 1-D input);
+   F in {16, 20}, B in {256, 300, 4096}, the timestep embedding one row
+   per batch row and one row for all, and a 1-D input);
 8. SAC training at full width on paper-8srv (`core.sac.train`: a uniform
    warmup round, then an actor round, 16 envs each) with the launch counts,
    ms per update_step and per collection decision, and one update_step on
@@ -40,11 +47,14 @@ runs, one line per result:
 10. the distilled main path: `batch_rollout` with sampler "distilled" at
    B = 256 on paper-8srv (phase 9's student) and paper-12srv (a random
    teacher and student), one denoiser_step launch per decision and no
-   chain launch, kernel path against plain path;
+   chain launch, kernel path against plain path; its profile counts the
+   device events per decision, one step kernel and no embedding kernel;
 11. the flash_attention kernel against its plain version, fp32 and bf16:
    tinyllama's prefill (B = 1, S = T = 2048, H = 32, KV = 4, hd = 64,
-   causal), a c = 4 chunk batch, hd 128 and 256, full attention with
-   S != T, a sliding window of 48, S = 17 / T = 33;
+   causal), Jamba's (H = 32, KV = 8, hd = 128), a c = 4 chunk batch, hd
+   128 and 256, full attention with S != T, sliding windows of 48, 40 and
+   72 (the last two ending mid-tile), S = 17 / T = 33, and S and T off the
+   kernel's tiles;
 12. the serving main path: a `ServingEngine` of 8 servers serving
    tinyllama-1.1b at full width (1.1 B parameters, fp32) in virtual time,
    16 requests of a paper-8srv trace (prompts of 256-2048 tokens), every
@@ -77,6 +87,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -88,10 +99,11 @@ import torch
 ROOT = Path(__file__).resolve().parent
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 rate, fp32 rate
-# outside the tensor cores, dense TF32 rate of the tensor cores.
+# outside the tensor cores, dense TF32 and bf16 rates of the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 494.7e12
+BF16_FLOP_PER_S = 989e12
 CHAIN_ATOL = 1e-4     # ~10x the fp32-vs-fp64 gap of the plain chain
 STEP_ATOL = 1e-5      # one MLP pass: fp32 sums in another order, a tanh
 ENV_ATOL = 1e-5       # quality / obs / reward (exp and a reordered sum)
@@ -112,7 +124,11 @@ REDESIGNED = {
     "env_step": ("EnvStepPlan: statics checked once, one pointer table, "
                  "three output buffers"),
     "denoiser_chain": ("8-CTA cluster, resident weights, 3xTF32 mma, "
-                       "bulk-copy exchanges")}
+                       "bulk-copy exchanges"),
+    "denoiser_step": ("one step of the chain's cluster (mlp_common.cuh), "
+                      "x, temb and f_s read in place, no concat"),
+    "flash_attention": ("TMA ring + producer warp, wgmma with Q and P from "
+                        "registers, 3xTF32 for fp32, bf16 native")}
 # exponentials per second on the special-function units: 16 per clock per
 # SM (Hopper white paper: 4 per SM sub-partition), 132 SMs, 1.98 GHz boost
 SFU_EXP_PER_S = 16 * 132 * 1.98e9
@@ -141,21 +157,67 @@ JAMBA_CUT = "jamba-v0.1-52b-8l-dense"
 # tests/test_kernels.py (fp32 2e-5; bf16 3e-2 against fp32 attention of the
 # same bf16 inputs), rtol = atol
 FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
-# (case, B, S, T, H, KV, hd, causal, window)
+# (case, B, S, T, H, KV, hd, causal, window); the kernel's tiles are 128
+# query rows (64 at hd 256) by 64 keys (32 for fp32 at hd 128 and 256)
 FA_CASES = (
     ("tinyllama prefill", 1, 2048, 2048, 32, 4, 64, True, 0),
+    ("jamba prefill", 1, 2048, 2048, 32, 8, 128, True, 0),
     ("c=4 chunk batch", 4, 512, 512, 32, 4, 64, True, 0),
     ("hd 128 (qwen2 heads)", 2, 300, 300, 12, 2, 128, True, 0),
     ("hd 256 (gemma heads)", 1, 200, 200, 16, 16, 256, True, 0),
     ("full, S != T", 2, 96, 160, 8, 4, 64, False, 0),
     ("window 48, tiles of 64", 1, 256, 256, 8, 2, 64, True, 48),
     ("S=17 T=33", 1, 17, 33, 4, 1, 64, False, 0),
+    ("S, T off the tiles, causal", 2, 200, 333, 8, 2, 64, True, 0),
+    ("S, T off the tiles, hd 128 full", 1, 77, 150, 4, 2, 128, False, 0),
+    ("window 40 ends mid-tile", 1, 300, 300, 8, 2, 64, True, 40),
+    ("window 72 ends mid-tile, hd 128", 1, 300, 300, 8, 2, 128, True, 72),
 )
 CELLS = (("paper-8srv", 8, 0.1), ("paper-12srv", 12, 0.15))
 
 
 def log(*parts):
     print(*parts, flush=True)
+
+
+# SASS instructions that show a kernel on the card's own units: `wgmma`
+# (HGMMA), TMA loads (UTMALDG) and `mma.sync` (HMMA); which kernel
+# functions must issue which (every instantiation of the flash kernel, both
+# cluster kernels)
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+SASS_NEEDS = {"flash_attention_kernel": ("HGMMA", "UTMALDG"),
+              "chain_cluster_kernel": ("HMMA",),
+              "step_cluster_kernel": ("HMMA",)}
+
+
+def sass_counts(name):
+    """{kernel function (mangled): {instruction: count}} of SASS_OPS in the
+    built library of kernel `name`, read with the toolkit's cuobjdump."""
+    from repro_torch.kernels import build as KB
+    tool = Path(KB.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(KB.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    pattern = re.compile(r"\b(" + "|".join(SASS_OPS) + r")\b")
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if line.strip().startswith("Function :"):
+            fn = line.split(":", 1)[1].strip()
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn is not None:
+            for op in pattern.findall(line):
+                counts[fn][op] += 1
+    return counts
+
+
+def check_sass(names):
+    """Logs SASS_OPS per kernel function and fails where a kernel of
+    SASS_NEEDS lacks an instruction it must issue."""
+    for name in names:
+        for fn, ops in sass_counts(name).items():
+            log(f"phase 1 sass {name}: {fn[:120]} {json.dumps(ops)}")
+            for kernel, need in SASS_NEEDS.items():
+                if kernel in fn:
+                    assert all(ops[op] > 0 for op in need), (fn, ops, need)
 
 
 # ----------------------------------------------------------------- inputs
@@ -534,12 +596,21 @@ def phase_main(dev, card, B=256, cells=CELLS, samplers=("ddpm", "ddim:5"),
     return launches, ms
 
 
+# device kernels a distilled decision may launch for its student, by a
+# piece of their names: the step kernel once, and no timestep embedding
+# (sin, cos) or concatenation any more
+STUDENT_KERNELS = ("step_cluster_kernel", "sin_kernel", "cos_kernel",
+                   "CatArrayBatchedCopy")
+
+
 def phase_profile(dev, card, B=256, steps=64, acfg=None, sampler="ddpm",
                   params=None, phase=4):
     """Where a decision's time goes on the main path (paper-8srv): a short
     rollout under torch.profiler. Device busy time is the sum of the
     device-side events (one stream, so they do not overlap); the idle share
-    is 1 - busy / wall. `params` defaults to a random actor."""
+    is 1 - busy / wall. `params` defaults to a random actor. A distilled
+    rollout also counts STUDENT_KERNELS per decision: one step kernel and
+    no sin or cos kernel (on the card)."""
     from repro_torch.actors.policies import actor_policy
     from repro_torch.core import agent as AG
     from repro_torch.core import rollout as RO
@@ -555,17 +626,24 @@ def phase_profile(dev, card, B=256, steps=64, acfg=None, sampler="ddpm",
         RO.batch_rollout(ecfg, traces, policy, params, num_steps=steps,
                          generator=torch.Generator(device=dev).manual_seed(2),
                          device=dev)
+    names = STUDENT_KERNELS if sampler == "distilled" else ()
     row = {"card": card, "cell": "paper-8srv", "sampler": sampler, "B": B,
-           "decisions": steps, **profile_device(dev, run, steps, "decision")}
+           "decisions": steps,
+           **profile_device(dev, run, steps, "decision", names)}
+    if names and dev.type == "cuda":
+        n = row["launches_per_decision"]
+        assert n["step_cluster_kernel"] == 1.0, n
+        assert n["sin_kernel"] == n["cos_kernel"] == 0, n
     log(f"phase {phase} profile " + json.dumps(row))
     return row
 
 
-def profile_device(dev, run, units, unit):
+def profile_device(dev, run, units, unit, names=()):
     """Wall and device time of `run()` (`units` units of work) under
     torch.profiler, after one warm run. Device busy time is the sum of
     the device-side events (one stream, so they do not overlap); the idle
-    share is 1 - busy / wall. Returns the per-unit numbers."""
+    share is 1 - busy / wall. Returns the per-unit numbers, with the
+    device events whose names hold each piece of `names` counted."""
     from torch.profiler import ProfilerActivity, profile
     run()
     sync(dev)
@@ -584,11 +662,17 @@ def profile_device(dev, run, units, unit):
             n_dev += 1
     busy_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {f"wall_ms_per_{unit}": 1e3 * wall / units,
-            f"device_busy_ms_per_{unit}": busy_us / 1e3 / units,
-            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
-            f"device_events_per_{unit}": n_dev / units,
-            f"top_device_us_per_{unit}": {n: us / units for n, us in top}}
+    out = {f"wall_ms_per_{unit}": 1e3 * wall / units,
+           f"device_busy_ms_per_{unit}": busy_us / 1e3 / units,
+           "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+           f"device_events_per_{unit}": n_dev / units,
+           f"top_device_us_per_{unit}": {n: us / units for n, us in top}}
+    if names:
+        out[f"launches_per_{unit}"] = {
+            p: sum(1 for e in prof.events()
+                   if e.device_type != torch.autograd.DeviceType.CPU
+                   and p in e.name) / units for p in names}
+    return out
 
 
 def _same_state(a, b, ctx):
@@ -682,40 +766,47 @@ def phase_loop_parity(dev, B=256, cells=CELLS, acfg=None):
 
 
 def phase_step(dev, A=10, H=256, Fs=(16, 20), Bs=(256, 300, 4096), T=10):
-    """denoiser_step kernel vs plain version; returns (max error, timing
-    inputs at the paper-8srv distilled main-path shape, B = 256, F = 16)."""
+    """denoiser_step kernel vs plain version, with the embedding one row
+    per batch row and one row for all (the distilled sampler's, stride 0);
+    returns (max error, timing inputs at the paper-8srv distilled main-path
+    shape, B = 256, F = 16, one embedding row)."""
+    from repro_torch.actors import samplers as SMP
     from repro_torch.core import diffusion as DF
     from repro_torch.kernels.denoiser import kernel as DK
     from repro_torch.kernels.denoiser import ops as KOPS
     from repro_torch.kernels.denoiser.ref import denoiser_ref
     g = torch.Generator(device=dev).manual_seed(4)
-    worst, timing = 0.0, None
+    worst, timing, n = 0.0, None, 0
     for F in Fs:
         p = DF.init_denoiser(A, F, H, generator=g, device=dev)
         w = [t for layer in p["layers"] for t in (layer["w"], layer["b"])]
         for B in Bs:
             x = torch.randn((B, A), generator=g, device=dev)
             f_s = torch.randn((B, F), generator=g, device=dev)
-            i = torch.full((B,), T, device=dev)
-            inp = torch.cat([x, DF.timestep_embedding(i), f_s], dim=-1)
-            got = DK.denoiser_step(inp, *w)
-            want = denoiser_ref(inp, *w)
-            sync(dev)
-            err = (got - want).abs().max().item()
-            assert got.shape == (B, A) and bool(torch.isfinite(got).all())
-            assert err <= STEP_ATOL, f"denoiser_step F={F} B={B}: err {err}"
-            worst = max(worst, err)
+            i = torch.randint(1, T + 1, (B,), generator=g, device=dev)
+            row = SMP.step_embedding(T, 16, dev)
+            for temb in (DF.timestep_embedding(i), row):
+                got = DK.denoiser_step(x, temb, f_s, *w)
+                inp = torch.cat([x, temb.expand(B, -1), f_s], dim=-1)
+                want = denoiser_ref(inp, *w)
+                sync(dev)
+                err = (got - want).abs().max().item()
+                kind = "per row" if temb.dim() == 2 else "one row"
+                assert got.shape == (B, A) and bool(torch.isfinite(got).all())
+                assert err <= STEP_ATOL, \
+                    f"denoiser_step F={F} B={B} temb {kind}: err {err}"
+                worst, n = max(worst, err), n + 1
             if (F, B) == (Fs[0], Bs[0]):
-                timing = (inp, *w)
+                timing = (x, row, f_s, *w)
         # one decision, unbatched, through the ops door
         got = KOPS.denoise_eps_fused(p, x[0], i[0], f_s[0])
         want = DF.denoise_eps(p, x[0], i[0], f_s[0])
         err = (got - want).abs().max().item()
         assert got.shape == (A,) and err <= STEP_ATOL, f"1-D F={F}: {err}"
-        worst = max(worst, err)
-    log(f"phase 7 denoiser_step kernel ~ plain: F in {list(Fs)}, B in "
-        f"{list(Bs)} and a 1-D input, A={A} H={H}; max abs err {worst:.3g} "
-        f"(tol {STEP_ATOL})")
+        worst, n = max(worst, err), n + 1
+    log(f"phase 7 denoiser_step kernel ~ plain: {n} cases, F in {list(Fs)}, "
+        f"B in {list(Bs)}, the embedding per row and one row for all, and a "
+        f"1-D input, A={A} H={H}; max abs err {worst:.3g} (tol {STEP_ATOL})")
     return worst, timing
 
 
@@ -943,10 +1034,11 @@ def phase_distilled(dev, card, params8, ddpm_ms, B=256, cells=CELLS):
 def phase_flash(dev, cases=FA_CASES):
     """flash_attention kernel vs plain version (`impl="ref"`) through the
     (B, S, H, hd) entry point, fp32 and bf16; returns (max error over the
-    fp32 cases, timing inputs at tinyllama's prefill shape)."""
+    fp32 cases, {"tinyllama": ..., "jamba": ...}: the fp32 inputs of the
+    two prefill cases, for timing)."""
     from repro_torch.kernels.flash_attention import ops as FA
     g = torch.Generator(device=dev).manual_seed(6)
-    worst, timing = {}, None
+    worst, timing = {}, {}
     for (case, B, S, T, H, KV, hd, causal, window) in cases:
         q32 = torch.randn((B, S, H, hd), generator=g, device=dev)
         k32 = torch.randn((B, T, KV, hd), generator=g, device=dev)
@@ -966,8 +1058,8 @@ def phase_flash(dev, cases=FA_CASES):
             name = str(dtype).replace("torch.", "")
             errs[name] = diff.max().item()
             worst[name] = max(worst.get(name, 0.0), errs[name])
-        if timing is None:
-            timing = (q32, k32, v32)
+        if case in ("tinyllama prefill", "jamba prefill"):
+            timing[case.split()[0]] = (q32, k32, v32)
         log(f"phase 11 flash_attention {case}: B={B} S={S} T={T} H={H} "
             f"KV={KV} hd={hd} causal={causal} window={window}; max abs err "
             + json.dumps(errs))
@@ -1296,21 +1388,26 @@ def measure(env_timing, chain_timing, step_timing, flash_timing, ssm_timing,
     same inputs. The bound counts each input
     element the function needs read once (an array it gathers from counts
     only the elements it gathers) and each output written once at the HBM
-    rate, and the matrix products' FLOPs at the fp32 rate. No single
-    PyTorch call computes env_step or the denoisers (`library_ms` null);
-    for flash_attention it is `scaled_dot_product_attention` on the same
-    tensors, and its bound counts 4·hd FLOPs per unmasked (query, key)
-    pair. ssm_scan's operations are its S·I·N exponentials at the SFU rate
-    and its 6 fp32 operations per state and step (`bound_terms_ms` gives
-    each term); no single PyTorch call computes it. The chain's operations
-    term is the lesser of its FLOPs at the fp32 rate and three times its
-    FLOPs (3xTF32) at the dense TF32 rate. `launches` is each
-    kernel's count summed over the main-path runs (phases 4, 8, 9, 10, 12
-    and 14), `launches_per_request` a serving kernel's per served request
-    in phases 12 and 14. The two redesigned kernels (env_step,
-    denoiser_chain) also carry `event_device_ms` (CUDA events with the host
-    ahead of the card, `device_ms_events`) and, as text, what changed; the
-    env_step row times the call the main path makes, an `EnvStepPlan`'s."""
+    rate, and the matrix products' FLOPs on the fastest unit that can do
+    them (`bound_of`): for fp32 the lesser of the fp32 FMA rate and three
+    times the FLOPs (3xTF32) at the dense TF32 rate, for bf16 the bf16
+    tensor-core rate. No single PyTorch call computes env_step or the
+    denoisers (`library_ms` null); for flash_attention it is
+    `scaled_dot_product_attention` on the same tensors, and its bound
+    counts 4·hd FLOPs and one exponential (at the SFU rate) per unmasked
+    (query, key) pair (`flash_work`); its `variants` time tinyllama's and
+    Jamba's prefill shapes in fp32 and bf16, SDPA beside each. ssm_scan's
+    operations are its S·I·N exponentials at the SFU rate and its 6 fp32
+    operations per state and step (`bound_terms_ms` gives each term); no
+    single PyTorch call computes it. `launches` is each kernel's count
+    summed over the main-path runs (phases 4, 8, 9, 10, 12 and 14),
+    `launches_per_request` a serving kernel's per served request in phases
+    12 and 14. The four redesigned kernels (env_step, denoiser_chain,
+    denoiser_step, flash_attention) also carry `event_device_ms` (CUDA
+    events with the host ahead of the card, `device_ms_events`) and, as
+    text, what changed; the env_step row times the call the main path
+    makes, an `EnvStepPlan`'s, and the denoiser_step row the distilled
+    decision's call, one embedding row for all."""
     from repro_torch.kernels.denoiser import kernel as DK
     from repro_torch.kernels.denoiser.ref import denoiser_chain_ref, denoiser_ref
     from repro_torch.kernels.env_step import ops as EKO
@@ -1339,20 +1436,17 @@ def measure(env_timing, chain_timing, step_timing, flash_timing, ssm_timing,
         w1.numel() + w2.numel() + w3.numel())
     chain_bytes = nbytes(*chain_timing, x)          # inputs + the (B, A) output
     step_k = lambda: DK.denoiser_step(*step_timing)  # noqa: E731
-    step_p = lambda: denoiser_ref(*step_timing)  # noqa: E731
-    inp, sw1, sw2, sw3 = (step_timing[0], step_timing[1], step_timing[3],
-                          step_timing[5])
-    step_flops = 2 * inp.shape[0] * (sw1.numel() + sw2.numel() + sw3.numel())
-    step_bytes = nbytes(*step_timing) + inp.shape[0] * sw3.shape[1] * 4
-    fq, fk, fv = flash_timing                   # (B, S, H, hd), (B, T, KV, hd)
-    fB, fS, fH, fhd = fq.shape
-    fT = fk.shape[1]
+    stx, stt, stf, sw1, sb1, sw2, sb2, sw3, sb3 = step_timing
+    step_p = lambda: denoiser_ref(  # noqa: E731
+        torch.cat([stx, stt.expand(stx.shape[0], -1), stf], dim=-1),
+        sw1, sb1, sw2, sb2, sw3, sb3)
+    step_flops = 2 * stx.shape[0] * (sw1.numel() + sw2.numel() + sw3.numel())
+    step_bytes = nbytes(*step_timing, stx)      # inputs + the (B, A) output
+    fq, fk, fv = flash_timing["tinyllama"]      # (B, S, H, hd), (B, T, KV, hd)
     flash_k = lambda: FA.attention(fq, fk, fv, causal=True)  # noqa: E731
     flash_p = lambda: FA.attention(fq, fk, fv, causal=True,  # noqa: E731
                                    impl="ref")
-    pairs = sum(min(i + 1, fT) for i in range(fS))   # causal, unmasked
-    flash_flops = 4 * fB * fH * fhd * pairs
-    flash_bytes = nbytes(fq, fk, fv, fq)             # q, k, v in; o out
+    flash_nb, flash_flops, flash_terms = flash_work(fq, fk, fv)
     flash_lib = _sdpa_call(fq, fk, fv)
     # the launch floor: device time of a one-element kernel, and the time
     # per call of back-to-back launches of it (host launch rate)
@@ -1385,11 +1479,13 @@ def measure(env_timing, chain_timing, step_timing, flash_timing, ssm_timing,
              "chain_cluster_kernel", 200),
             ("denoiser_step", "src/repro_torch/csrc/denoiser_step.cu",
              "src/repro/kernels/denoiser/kernel.py:50", step_k, step_p, None,
-             step_bytes, step_flops, fp32(step_flops),
-             "denoiser_step_kernel", 200),
+             step_bytes, step_flops,
+             {**fp32(step_flops),
+              "tf32x3_operations": 3 * step_flops / TF32_FLOP_PER_S},
+             "step_cluster_kernel", 200),
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:83", flash_k,
-             flash_p, flash_lib, flash_bytes, flash_flops, fp32(flash_flops),
+             flash_p, flash_lib, flash_nb, flash_flops, flash_terms,
              "flash_attention_kernel", 20),
             ("ssm_scan", "src/repro_torch/csrc/ssm_scan.cu",
              "src/repro/kernels/ssm_scan/kernel.py:61", ssm_k, ssm_p, None,
@@ -1400,15 +1496,7 @@ def measure(env_timing, chain_timing, step_timing, flash_timing, ssm_timing,
         dev_ms, seen = kernel_device_ms(k_fn, kname)
         plain_ms = time_ms(p_fn, max(it // 4, 5))
         terms = {"bytes": nb / HBM_BYTES_PER_S, **ops_s}
-        # the products take the least time of the units that can do them
-        # (fp32 FMAs or 3xTF32 on the tensor cores); the other terms are
-        # all needed, so the bound is the largest
-        alts = ("fp32_operations", "tf32x3_operations")
-        need = {k: v for k, v in terms.items() if k not in alts}
-        need["operations"] = min(terms[k] for k in alts if k in terms)
-        top = max(need, key=need.get)
-        bound = need[top]
-        top = "bytes" if top == "bytes" else "operations"
+        bound, top = bound_of(terms)
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
                      "launches_per_request": per_request.get(name),
@@ -1426,8 +1514,71 @@ def measure(env_timing, chain_timing, step_timing, flash_timing, ssm_timing,
         if name in REDESIGNED:
             rows[-1].update({"event_device_ms": device_ms_events(k_fn, it),
                              "redesigned": REDESIGNED[name]})
+        if name == "flash_attention":
+            rows[-1]["variants"] = flash_variants(flash_timing)
         log(f"phase 6 timing {name} [{card}]: " + json.dumps(rows[-1]))
     return rows
+
+
+def bound_of(terms):
+    """(seconds, "bytes" or "operations") of the least time the card could
+    take: the products take the least time of the units that can do them
+    (fp32 FMAs or 3xTF32 on the tensor cores); the other terms are all
+    needed, so the bound is the largest."""
+    alts = ("fp32_operations", "tf32x3_operations")
+    need = {k: v for k, v in terms.items() if k not in alts}
+    if any(k in terms for k in alts):
+        need["operations"] = min(terms[k] for k in alts if k in terms)
+    top = max(need, key=need.get)
+    return need[top], "bytes" if top == "bytes" else "operations"
+
+
+def flash_work(q, k, v):
+    """(bytes, FLOPs, bound terms in seconds) of causal attention on
+    (B, S, H, hd) q and (B, T, KV, hd) k, v: q, k, v read and o written
+    once; 4 hd FLOPs and one exponential per unmasked (query, key) pair;
+    the products on the fastest unit for the dtype (fp32: fp32 FMAs or
+    3xTF32; bf16: the bf16 tensor cores)."""
+    B, S, H, hd = q.shape
+    T = k.shape[1]
+    pairs = B * H * sum(min(i + 1, T) for i in range(S))
+    flops = 4 * hd * pairs
+    nb = nbytes(q, k, v, q)
+    if q.dtype == torch.float32:
+        ops = {"fp32_operations": flops / FP32_FLOP_PER_S,
+               "tf32x3_operations": 3 * flops / TF32_FLOP_PER_S}
+    else:
+        ops = {"bf16_operations": flops / BF16_FLOP_PER_S}
+    return nb, flops, {"bytes": nb / HBM_BYTES_PER_S,
+                       "exponentials": pairs / SFU_EXP_PER_S, **ops}
+
+
+def flash_variants(shapes, it=20):
+    """flash_attention at each prefill shape of `shapes` (fp32 inputs), in
+    fp32 and bf16: device ms (CUDA events with the host ahead), call ms,
+    the plain version's and `scaled_dot_product_attention`'s ms on the same
+    inputs, and the bound with its terms."""
+    from repro_torch.kernels.flash_attention import ops as FA
+    out = []
+    for shape, inputs in shapes.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (t.to(dtype) for t in inputs)
+            k_fn = lambda: FA.attention(q, k, v, causal=True)  # noqa: E731
+            p_fn = lambda: FA.attention(q, k, v, causal=True,  # noqa: E731
+                                        impl="ref")
+            nb, flops, terms = flash_work(q, k, v)
+            bound, top = bound_of(terms)
+            out.append({
+                "shape": shape, "dtype": str(dtype).replace("torch.", ""),
+                "q": list(q.shape), "kv": list(k.shape),
+                "event_device_ms": device_ms_events(k_fn, it),
+                "call_ms": time_ms(k_fn, it),
+                "plain_ms": time_ms(p_fn, 5),
+                "library_ms": time_ms(_sdpa_call(q, k, v), it),
+                "bound_ms": 1e3 * bound, "bound_by": top,
+                "bound_terms_ms": {n: 1e3 * x for n, x in terms.items()},
+                "flops": flops, "bytes": nb})
+    return out
 
 
 def main():
@@ -1454,6 +1605,7 @@ def main():
         for line in r["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"phase 1 ptxas {name}: {line.strip()}")
+    check_sass(KERNELS)
 
     t0 = time.perf_counter()
     errs = {}

@@ -17,6 +17,7 @@ same generator state.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -153,6 +154,14 @@ def chain_sample(denoiser_params, sched: DF.DiffusionSchedule, f_s,
                               c.coef_x, c.coef_e, c.coef_n, impl=impl)
 
 
+@functools.lru_cache(maxsize=None)
+def step_embedding(T: int, t_dim: int, device) -> torch.Tensor:
+    """The timestep embedding of step T, (t_dim,), built once per (T,
+    t_dim, device): the distilled sampler's input for every row of every
+    decision. Callers must not write to it."""
+    return DF.timestep_embedding(torch.tensor(T, device=device), t_dim)
+
+
 def distilled_sample(student_params, f_s, action_dim: int, T: int, *,
                      generator=None, x_T=None, impl: str = "auto",
                      t_dim: int = 16):
@@ -161,14 +170,17 @@ def distilled_sample(student_params, f_s, action_dim: int, T: int, *,
     x_T (..., A) is the sampler's first and only draw, from `generator`
     unless given: the x_T the teacher chain would have started from.
     `impl="auto"` runs the `denoiser_step` kernel on CUDA tensors and its
-    plain version on CPU tensors; `impl="ref"` runs
+    plain version on CPU tensors, with T's embedding from
+    `step_embedding` (one row for all, so a decision launches the kernel
+    and nothing else for the student); `impl="ref"` runs
     `diffusion.denoise_eps` on any device."""
     shape = f_s.shape[:-1] + (action_dim,)
     x = (torch.randn(shape, generator=generator, device=f_s.device)
          if x_T is None else x_T)
-    i = torch.full(f_s.shape[:-1], T, device=f_s.device)
     if impl == "ref":
+        i = torch.full(f_s.shape[:-1], T, device=f_s.device)
         return DF.denoise_eps(student_params, x, i, f_s, t_dim)
     if impl != "auto":
         raise ValueError(f"impl must be auto|ref, got {impl!r}")
-    return KOPS.denoise_eps_fused(student_params, x, i, f_s, t_dim)
+    return KOPS.denoise_eps_fused(student_params, x, None, f_s, t_dim,
+                                  temb=step_embedding(T, t_dim, f_s.device))

@@ -1,5 +1,6 @@
 """Wrappers of the CUDA denoiser kernels: the whole reverse chain
-(`csrc/denoiser_chain.cu`) and one eps-MLP forward (`csrc/denoiser_step.cu`).
+(`csrc/denoiser_chain.cu`) and one eps-MLP forward (`csrc/denoiser_step.cu`),
+both built on the cluster pieces of `csrc/mlp_common.cuh`.
 
 `denoiser_chain` replaces the TPU kernel
 `repro/kernels/denoiser/kernel.py::denoiser_chain` (`_chain_kernel`). What
@@ -18,10 +19,15 @@ it. There is no cuBLAS or torch.matmul inside the chain. A call checks its
 (`_chain_launch_plan`).
 
 `denoiser_step` replaces `repro/kernels/denoiser/kernel.py::denoiser_step`
-(`_denoiser_kernel`), the distilled sampler's one call per decision. At the
-main path's shape (B = 256) its 40 MFLOP and 0.37 MB both take less than a
-launch, so latency bounds it; the kernel reads the weights from L2 and
-keeps a block's rows and activations in shared memory.
+(`_denoiser_kernel`), the distilled sampler's one call per decision. It is
+one step of the chain's design: the same cluster, resident weight slices,
+3xTF32 `mma.sync` and bulk-copy exchanges, with fc1 over the whole input
+and tanh(eps) stored where the chain would update x. It reads x, the
+timestep embedding (one row per batch row, or one row for all) and f_s
+where they lie, so a call launches the kernel and nothing else. At the
+main path's shape (B = 256) its 40 MFLOP take 0.245 µs as 3×TF32, far under
+a launch: latency bounds it. `step_plan` is its `chain_plan`, with the same
+refusals (H = 256 and C = 8 only).
 
 For CPU tensors each wrapper takes its plain version (`ref.py`); for CUDA
 tensors it launches its kernel or raises.
@@ -41,20 +47,8 @@ from repro_torch.kernels.denoiser.ref import denoiser_chain_ref, denoiser_ref
 SMEM_LIMIT = 232448
 
 
-def _check(kernel: str, shapes, device):
-    """Each tensor of {name: (tensor, shape)} must be contiguous float32 of
-    that shape on `device`; raises naming the first that is not."""
-    for name, (t, shape) in shapes.items():
-        if t.device != device or t.dtype != torch.float32 \
-                or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(
-                f"{kernel} kernel: {name} must be a contiguous float32 "
-                f"tensor of shape {shape} on {device}; got {t.dtype} "
-                f"{tuple(t.shape)} on {t.device}")
-
-
-#: the chain kernel's row tile (one m16 tile of mma.sync), threads per CTA,
-#: cluster size and hidden width, all fixed in csrc/denoiser_chain.cu
+#: the chain and step kernels' row tile (one m16 tile of mma.sync), threads
+#: per CTA, cluster size and hidden width, all fixed in csrc/mlp_common.cuh
 CHAIN_ROWS = 16
 CHAIN_THREADS = 256
 CHAIN_C = 8
@@ -62,7 +56,7 @@ CHAIN_H = 256
 
 
 class ChainPlan(NamedTuple):
-    """How the chain kernel covers a call: clusters of `C` CTAs, each CTA
+    """How the chain (or step) kernel covers a call: clusters of `C` CTAs, each CTA
     owning H / C hidden columns; a cluster walks row tiles of `R` rows;
     `tiles` = ceil(B / R); `smem_bytes` per CTA."""
     C: int
@@ -210,43 +204,130 @@ def denoiser_chain(x, noises, f_s, tembs, coef_x, coef_e, coef_n,
 denoiser_chain.launches = 0
 
 
+def step_smem_bytes(A: int, F: int, t_dim: int) -> int:
+    """Shared memory of one CTA of the step kernel, bytes: `make_layout`
+    in csrc/denoiser_step.cu, region for region."""
+    def r4(n):
+        return (n + 3) // 4 * 4
+
+    def pad16_4(n):                 # the least m >= n with m = 4 mod 16
+        return (n + 11) // 16 * 16 + 4
+    R, C, H = CHAIN_ROWS, CHAIN_C, CHAIN_H
+    ncol = H // C
+    blk = R * (ncol + 4)
+    xk = -(-(A + t_dim + F) // 16) * 16
+    floats = (r4(xk * (ncol + 8)) + r4(ncol * (H + 8)) + r4(ncol * A)
+              + 2 * r4(ncol) + r4(A) + 2 * R * pad16_4(xk)
+              + 2 * R * pad16_4(ncol) + (2 * C + 1) * blk + r4(C * R * A)
+              + 16 * ncol + 4)
+    return 4 * floats
+
+
+def step_plan(B: int, A: int, F: int, t_dim: int, H: int) -> ChainPlan:
+    """The (C, R) plan of the step kernel for x (B, A), an embedding of
+    t_dim, f_s (B, F) and hidden width H: the chain kernel's cluster (C = 8
+    CTAs of 32 hidden columns, R = 16 rows a tile), compiled for H = 256
+    only; one thread per (row, action dim) of a tile bounds A by 16. Raises
+    ValueError naming the constraint where no plan fits."""
+    if min(B, A, F, t_dim, H) < 1:
+        raise ValueError(f"denoiser_step kernel: B, A, F, t_dim and H must "
+                         f"be >= 1; got B={B} A={A} F={F} t_dim={t_dim} "
+                         f"H={H}")
+    if H != CHAIN_H:
+        raise ValueError(f"denoiser_step kernel: H={H}; the kernel is "
+                         f"compiled for H={CHAIN_H} only")
+    if A * CHAIN_ROWS > CHAIN_THREADS:
+        raise ValueError(f"denoiser_step kernel: A={A} must be <= "
+                         f"{CHAIN_THREADS // CHAIN_ROWS}")
+    smem = step_smem_bytes(A, F, t_dim)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"denoiser_step kernel: {smem} bytes of shared "
+                         f"memory per CTA at A={A} F={F} t_dim={t_dim}, "
+                         f"over {SMEM_LIMIT}")
+    return ChainPlan(C=CHAIN_C, R=CHAIN_ROWS, tiles=-(-B // CHAIN_ROWS),
+                     smem_bytes=smem)
+
+
 @functools.lru_cache(maxsize=None)
 def _step_lib():
     lib = KB.load("denoiser_step")
-    lib.denoiser_step_launch.argtypes = ([ctypes.c_void_p] * 8
-                                         + [ctypes.c_int] * 4
+    lib.denoiser_step_launch.argtypes = ([ctypes.c_void_p] * 10
+                                         + [ctypes.c_int] * 6
                                          + [ctypes.c_void_p])
     lib.denoiser_step_launch.restype = ctypes.c_int
-    lib.denoiser_step_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.denoiser_step_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.denoiser_step_smem_bytes.restype = ctypes.c_int
+    lib.denoiser_step_max_clusters.argtypes = ([ctypes.c_int] * 3
+                                               + [ctypes.c_void_p])
+    lib.denoiser_step_max_clusters.restype = ctypes.c_int
     return lib
 
 
-def denoiser_step(inp, w1, b1, w2, b2, w3, b3):
-    """tanh(mish(mish(inp w1 + b1) w2 + b2) w3 + b3), (B, A); inp (B, D),
-    w1 (D, H), w2 (H, H), w3 (H, A), biases (H,), (H,), (A,)."""
-    if inp.device.type == "cpu":
-        return denoiser_ref(inp, w1, b1, w2, b2, w3, b3)
-    if inp.device.type != "cuda":
-        raise ValueError(f"denoiser_step runs on cpu or cuda, not {inp.device}")
-    B, D = inp.shape
-    H = w1.shape[1]
-    A = w3.shape[1]
-    shapes = {"inp": (inp, (B, D)), "w1": (w1, (D, H)), "b1": (b1, (H,)),
-              "w2": (w2, (H, H)), "b2": (b2, (H,)), "w3": (w3, (H, A)),
-              "b3": (b3, (A,))}
-    _check("denoiser_step", shapes, inp.device)
-    if B == 0:
-        raise ValueError("denoiser_step kernel: empty batch")
+@functools.lru_cache(maxsize=None)
+def _step_launch_plan(device_index: int, B: int, A: int, F: int, TD: int,
+                      H: int, per_row: bool):
+    """(plan, clusters in the grid, expected shapes in argument order) for
+    one call shape on one card, computed once."""
+    plan = step_plan(B, A, F, TD, H)
     lib = _step_lib()
-    smem = lib.denoiser_step_smem_bytes(D, H)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"denoiser_step kernel needs {smem} bytes of shared "
-                         f"memory at D={D} H={H}; a block has {SMEM_LIMIT}")
-    out = torch.empty((B, A), dtype=torch.float32, device=inp.device)
-    ptrs = [t.data_ptr() for t, _ in shapes.values()] + [out.data_ptr()]
-    stream = torch.cuda.current_stream(inp.device).cuda_stream
-    err = lib.denoiser_step_launch(*ptrs, B, D, H, A, stream)
+    smem = lib.denoiser_step_smem_bytes(A, F, TD)
+    if smem != plan.smem_bytes:
+        raise RuntimeError("csrc/denoiser_step.cu and step_plan disagree on "
+                           f"the shared memory: {smem} != {plan.smem_bytes}")
+    resident = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = lib.denoiser_step_max_clusters(A, F, TD, ctypes.byref(resident))
+    if err != 0:
+        raise RuntimeError(f"denoiser_step occupancy query failed: CUDA "
+                           f"error {err}")
+    if resident.value < 1:
+        raise ValueError(f"denoiser_step kernel: a cluster of {plan.C} CTAs "
+                         f"with {smem} bytes each cannot be resident")
+    D = A + TD + F
+    shapes = tuple(torch.Size(s) for s in (
+        (B, A), (B, TD) if per_row else (TD,), (B, F), (D, H), (H,), (H, H),
+        (H,), (H, A), (A,)))
+    return plan, min(plan.tiles, resident.value), shapes
+
+
+_STEP_ARGS = ("x", "temb", "f_s", "w1", "b1", "w2", "b2", "w3", "b3")
+
+
+def denoiser_step(x, temb, f_s, w1, b1, w2, b2, w3, b3):
+    """tanh(mish(mish([x, temb, f_s] w1 + b1) w2 + b2) w3 + b3), (B, A);
+    x (B, A), temb (B, t_dim) one row per batch row or (t_dim,) one row for
+    all, f_s (B, F), w1 (A+t_dim+F, H), w2 (H, H), w3 (H, A), biases (H,),
+    (H,), (A,)."""
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            inp = torch.cat([x, temb.expand(x.shape[0], temb.shape[-1]), f_s],
+                            dim=-1)
+            return denoiser_ref(inp, w1, b1, w2, b2, w3, b3)
+        raise ValueError(f"denoiser_step runs on cpu or cuda, not {x.device}")
+    dev = x.get_device()
+    B, A = x.shape
+    TD = temb.shape[-1]
+    per_row = temb.dim() == 2
+    plan, clusters, shapes = _step_launch_plan(
+        dev, B, A, f_s.shape[-1], TD, w1.shape[-1], per_row)
+    args = (x, temb, f_s, w1, b1, w2, b2, w3, b3)
+    f32 = torch.float32
+    for i, (t, shape) in enumerate(zip(args, shapes)):
+        if t.dtype is not f32 or t.get_device() != dev or t.shape != shape \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"denoiser_step kernel: {_STEP_ARGS[i]} must be a "
+                f"contiguous float32 tensor of shape {tuple(shape)} on "
+                f"{x.device}; got {t.dtype} {tuple(t.shape)} on {t.device}")
+    ptrs = [t.data_ptr() for t in args]
+    for i in range(3, 8):               # w1, b1, w2, b2, w3: cp.async 16 B
+        if ptrs[i] % 16:
+            raise ValueError(f"denoiser_step kernel: {_STEP_ARGS[i]} must "
+                             f"start on 16 bytes")
+    out = torch.empty((B, A), dtype=f32, device=x.device)
+    err = _step_lib().denoiser_step_launch(
+        *ptrs, out.data_ptr(), TD if per_row else 0, B, A, shapes[2][1], TD,
+        clusters, KB.raw_stream(dev))
     if err != 0:
         raise RuntimeError(
             f"denoiser_step kernel launch failed: CUDA error {err}")

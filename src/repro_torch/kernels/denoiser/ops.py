@@ -1,7 +1,8 @@
 """Entry points of the denoiser kernels on the params dict.
 
 * `denoise_eps_fused`: one eps-MLP forward (drop-in for
-  `core.diffusion.denoise_eps`), one `denoiser_step` launch on the card.
+  `core.diffusion.denoise_eps`), one `denoiser_step` launch on the card;
+  given one embedding row for all (`temb`), the launch is all it does.
 * `denoise_chain`: the whole K-step reverse chain, one `denoiser_chain`
   launch on the card. `impl="auto"` dispatches by the tensors' device: the
   CUDA kernel for CUDA tensors (it launches or raises; there is no
@@ -39,16 +40,21 @@ def _flat_weights(denoiser_params):
             layers[2]["w"], layers[2]["b"])
 
 
-def denoise_eps_fused(denoiser_params, x, i, f_s, t_dim: int = 16):
+def denoise_eps_fused(denoiser_params, x, i, f_s, t_dim: int = 16, *,
+                      temb=None):
     """eps(x_i, i, f_s) through the one-call kernel: x (..., A), i (...,),
     f_s (..., F), with ... empty or one batch axis (a 1-D input is
-    expanded and squeezed back)."""
+    expanded and squeezed back). The kernel reads the timestep embedding
+    of `i` per row; `temb` (t_dim,), the embedding of one step for every
+    row (`actors.samplers.step_embedding`), replaces it, and `i` is then
+    not read."""
     w = _flat_weights(denoiser_params)
-    inp = torch.cat([x, timestep_embedding(i, t_dim), f_s], dim=-1)
-    squeeze = inp.ndim == 1
+    if temb is None:
+        temb = timestep_embedding(i, t_dim)
+    squeeze = x.ndim == 1
     if squeeze:
-        inp = inp[None]
-    out = denoiser_step(inp, *w)
+        x, f_s = x[None], f_s[None]
+    out = denoiser_step(x, temb, f_s, *w)
     return out[0] if squeeze else out
 
 

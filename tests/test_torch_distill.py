@@ -89,6 +89,52 @@ def test_denoise_eps_fused_matches_reference_kernel(batch):
     assert TKER.denoiser_step.launches == before      # CPU: no launch
 
 
+@pytest.mark.parametrize("batch", [(), (1,), (7,), (130,)],
+                         ids=["1d", "b1", "b7", "b130"])
+def test_denoise_eps_fused_with_one_embedding_row_matches_reference(batch):
+    """The distilled sampler's call: one embedding row for every row (the
+    kernel reads it with row stride 0), from `step_embedding`'s cache,
+    against the reference's `denoiser_step` Pallas kernel in interpret mode
+    and `denoise_eps` on the per-row embedding of the same T, at 1e-5."""
+    rng = np.random.default_rng(20 + (len(batch) and batch[0]))
+    p = JDF.init_denoiser(jax.random.PRNGKey(2), A, F, H)
+    x = rng.standard_normal(batch + (A,)).astype(np.float32)
+    i = np.full(batch, T, dtype=np.int32)
+    f_s = rng.standard_normal(batch + (F,)).astype(np.float32)
+    want = JKOPS.denoise_eps_fused(p, jnp.asarray(x), jnp.asarray(i),
+                                   jnp.asarray(f_s), interpret=True)
+    tp = _to_torch(p)
+    temb = TSMP.step_embedding(T, 16, torch.device("cpu"))
+    assert tuple(temb.shape) == (16,)
+    got = TKOPS.denoise_eps_fused(tp, _t(x), None, _t(f_s), temb=temb)
+    assert tuple(got.shape) == batch + (A,)
+    _close(got, want, 1e-5)
+    _close(got, TDF.denoise_eps(tp, _t(x), _t(i), _t(f_s)), 1e-5)
+    # the wrapper's own door: one row, or the row repeated per batch row
+    if batch:
+        w = TKOPS._flat_weights(tp)
+        rows = temb.expand(batch + (16,)).contiguous()
+        _close(TKER.denoiser_step(_t(x), temb, _t(f_s), *w),
+               TKER.denoiser_step(_t(x), rows, _t(f_s), *w), 0)
+
+
+def test_step_embedding_is_cached_per_step_and_width():
+    """One tensor per (T, t_dim, device), equal to the embedding of T; a
+    different T or t_dim gives a different row."""
+    cpu = torch.device("cpu")
+    a = TSMP.step_embedding(T, 16, cpu)
+    assert TSMP.step_embedding(T, 16, cpu) is a
+    np.testing.assert_array_equal(
+        a.numpy(), TDF.timestep_embedding(torch.tensor([T]), 16)[0].numpy())
+    _close(a, JDF.timestep_embedding(jnp.asarray(T), 16), 1e-6)
+    other_t = TSMP.step_embedding(T + 1, 16, cpu)
+    wider = TSMP.step_embedding(T, 32, cpu)
+    assert tuple(other_t.shape) == (16,) and tuple(wider.shape) == (32,)
+    assert not torch.equal(a, other_t)
+    assert not torch.equal(a, wider[:16])
+    _close(wider, JDF.timestep_embedding(jnp.asarray(T), 32), 1e-6)
+
+
 def test_denoise_eps_fused_rejects_wrong_layer_count():
     p = _to_torch(JDF.init_denoiser(jax.random.PRNGKey(0), 3, 8, 16))
     args = (torch.zeros(2, 3), torch.ones(2, dtype=torch.int32),

@@ -1,10 +1,15 @@
-"""The host-side plans of two CUDA kernels of the port, on the CPU.
+"""The host-side plans of the port's CUDA kernels, on the CPU.
 
-* `chain_plan` (kernels/denoiser/kernel.py) gives the denoiser_chain
-  kernel's cluster size C, row tile R and shared memory; it is pure
-  Python. Every shape the port's paths give the chain must fit one CTA's
-  shared memory with C dividing H into 32 columns, and an unsupported H
-  or an overflow raises.
+* `chain_plan` and `step_plan` (kernels/denoiser/kernel.py) give the
+  denoiser_chain and denoiser_step kernels' cluster size C, row tile R and
+  shared memory; they are pure Python. Every shape the port's paths give
+  them must fit one CTA's shared memory with C dividing H into 32 columns,
+  and an unsupported H or an overflow raises.
+* `flash_plan` (kernels/flash_attention/kernel.py) gives the flash
+  attention kernel's tiles and shared memory per (head dim, dtype); every
+  head dim the models use must fit in fp32 and bf16, and a head dim the
+  kernel is not built for raises. The strides it hands TMA are checked on
+  CPU tensors.
 * `EnvStepPlan` (kernels/env_step/kernel.py) binds the env_step kernel to
   one rollout's constants. A plan on the CPU checks the same tensors and
   takes the plain version, so its spec checks, its output carving and its
@@ -21,6 +26,7 @@ from repro_torch.kernels.denoiser import kernel as DK
 from repro_torch.kernels.env_step import kernel as EK
 from repro_torch.kernels.env_step import ops as EKO
 from repro_torch.kernels.env_step.ref import env_step_ref
+from repro_torch.kernels.flash_attention import kernel as FK
 
 A, T_DIM, H = 10, 16, 256
 
@@ -71,6 +77,97 @@ def test_chain_plan_rejects_bad_arguments():
         DK.chain_plan(256, 17, 16, T_DIM, H)
     with pytest.raises(ValueError, match="must each be <= 16"):
         DK.chain_plan(256, A, 16, 32, H)
+
+
+# ------------------------------------------------------------- step plan
+@pytest.mark.parametrize("F", [12, 16, 20])
+@pytest.mark.parametrize("B", [1, 16, 256, 300, 4096])
+def test_step_plan_fits_every_path_shape(B, F):
+    """The distilled decision at B = 256 (and 1 when serving), the student
+    at the distiller's batch; F of the 4-, 8- and 12-server cells."""
+    plan = DK.step_plan(B, A, F, T_DIM, H)
+    assert plan.smem_bytes <= DK.SMEM_LIMIT
+    assert (plan.C, plan.R) == (8, 16) and H // plan.C == 32
+    assert plan.tiles == -(-B // 16) and (plan.tiles - 1) * 16 < B
+    assert plan.smem_bytes == DK.step_smem_bytes(A, F, T_DIM)
+    # fc1 reads [x, temb, f_s] padded to a multiple of 16 columns
+    assert DK.step_smem_bytes(A, F, T_DIM) == DK.step_smem_bytes(
+        A, -(-(A + T_DIM + F) // 16) * 16 - A - T_DIM, T_DIM)
+
+
+@pytest.mark.parametrize("H_", [48, 64, 128, 512])
+def test_step_plan_refuses_other_widths(H_):
+    with pytest.raises(ValueError, match=f"denoiser_step kernel: H={H_}; "
+                       f"the kernel is compiled for H=256 only"):
+        DK.step_plan(256, A, 16, T_DIM, H_)
+
+
+def test_step_plan_rejects_bad_arguments():
+    with pytest.raises(ValueError, match="B=0"):
+        DK.step_plan(0, A, 16, T_DIM, H)
+    with pytest.raises(ValueError, match="A=17 must be <= 16"):
+        DK.step_plan(256, 17, 16, T_DIM, H)
+    with pytest.raises(ValueError, match="bytes of shared memory per CTA"):
+        DK.step_plan(256, A, 4000, T_DIM, H)
+
+
+# ------------------------------------------------------------- flash plan
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("hd", FK.HEAD_DIMS)
+def test_flash_plan_fits_every_head_dim(hd, dtype):
+    """Every head dim of the configs fits a block's shared memory in both
+    dtypes, with a ring of two stages and tiles that keep the 128-byte
+    swizzle's 1024-byte alignment."""
+    plan = FK.flash_plan(hd, dtype)
+    es = torch.finfo(dtype).bits // 8
+    assert plan.smem_bytes <= DK.SMEM_LIMIT
+    assert plan.stages >= 2 and plan.BQ in (64, 128)
+    assert plan.threads == plan.BQ // 64 * 128 + 32    # + the producer warp
+    assert (plan.BK * hd * es) % 1024 == 0 and (hd * es) % 128 == 0
+    assert plan.BK % 16 == 0
+
+
+def test_flash_plan_main_path_tiles():
+    """tinyllama's fp32 prefill: 128 query rows by 64 keys, two consumer
+    warpgroups; fp32 at hd 256 keeps its query block out of shared memory
+    to fit two stages and the split tiles."""
+    assert FK.flash_plan(64, torch.float32)[:4] == (128, 64, 2, True)
+    assert FK.flash_plan(128, torch.float32)[:4] == (128, 32, 2, True)
+    plan = FK.flash_plan(256, torch.float32)
+    assert (plan.BQ, plan.q_in_smem) == (64, False)
+    assert DK.SMEM_LIMIT - plan.smem_bytes < 4096
+
+
+@pytest.mark.parametrize("hd", [32, 80, 96, 192, 512])
+def test_flash_plan_raises_on_head_dims_it_does_not_take(hd):
+    with pytest.raises(ValueError, match=f"head_dim {hd} not in"):
+        FK.flash_plan(hd, torch.float32)
+
+
+def test_flash_plan_raises_on_dtype():
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        FK.flash_plan(64, torch.float16)
+
+
+def test_flash_strides_for_tma():
+    """Head-major views of the model's (B, S, H, hd) tensors pass as they
+    are; a size-1 dimension's stride is replaced by a 16-byte multiple; a
+    stride or base off 16 bytes raises."""
+    q = torch.zeros(1, 40, 8, 64).transpose(1, 2)         # (B, H, S, hd)
+    assert FK._strides("q", q, 4) == [40 * 8 * 64, 64, 8 * 64]
+    # a size-1 batch with a stride of 3 elements gets the tensor's span
+    odd = torch.as_strided(torch.zeros(40 * 8 * 64), (1, 8, 40, 64),
+                           (3, 64, 8 * 64, 1))
+    assert FK._strides("q", odd, 4) == [40 * 8 * 64, 64, 8 * 64]
+    k = torch.zeros(2, 40, 2, 64).transpose(1, 2)
+    assert FK._strides("k", k, 4) == [40 * 2 * 64, 64, 2 * 64]
+    with pytest.raises(ValueError, match="k's strides"):
+        FK._strides("k", torch.zeros(2, 40, 2, 66)[..., :64].transpose(1, 2),
+                    4)
+    with pytest.raises(ValueError, match="v must start on 16 bytes"):
+        FK._strides("v", torch.zeros(2, 40, 2, 65)[..., 1:].transpose(1, 2),
+                    4)
 
 
 # ------------------------------------------------------------ env_step plan

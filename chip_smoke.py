@@ -6,16 +6,18 @@ toolkit: `python3 chip_smoke.py`. It builds the hand-written kernels from
 `src/repro_torch/csrc` into `build/` (one nvcc per source, in parallel) and
 runs, one line per result:
 
-1. the card's name and power limit, the kernels' build time, and per
-   kernel function the count of `wgmma`, TMA-load and `mma.sync`
-   instructions in its SASS (cuobjdump): every flash_attention
+1. the card's name and power limit, the kernels' build time, ptxas's
+   registers and spills (no ssm_scan or env_step instantiation may spill),
+   and per kernel function the count of `wgmma`, TMA-load, `mma.sync` and
+   MUFU instructions in its SASS (cuobjdump): every flash_attention
    instantiation must issue `wgmma` and TMA loads, both denoiser kernels
-   `mma.sync`;
+   `mma.sync`, the scan MUFU (its exponentials);
 2. the env_step kernel against its plain PyTorch version on random states
    (B = 256, E in {8, 12}, K = 32, l = 8, one and three models, with and
-   without fault columns), then through one `EnvStepPlan` kept over three
-   decisions at B = 253, with and without faults: exact on ints, bools and
-   the clock;
+   without fault columns; E = 5, K = 30, whose rows are not 16-byte
+   aligned, and E = 8, K = 40, wider than a warp, with and without
+   faults), then through one `EnvStepPlan` kept over three decisions at
+   B = 253, with and without faults: exact on ints, bools and the clock;
 3. the denoiser_chain kernel against its plain version (A = 10, H = 256;
    B in {1, 3, 16, 256, 300} x F in {12, 16, 20} x K = 10 DDPM and K = 5
    DDIM coefficients, and the distiller's K = 10 DDIM chain at N = 4096;
@@ -30,10 +32,10 @@ runs, one line per result:
 6. a timing row per kernel: device and call time, plain-version time,
    bound and (flash_attention) `scaled_dot_product_attention`'s time, at
    the main path's shapes (ssm_scan at Jamba's 2048-token prefill); the
-   four redesigned kernels (env_step's call, the chain, denoiser_step and
-   flash_attention) also get CUDA-event device time and a note of what
-   changed, and flash_attention is timed at tinyllama's and Jamba's
-   prefill in fp32 and bf16, SDPA beside each;
+   redesigned kernels (all five) also get CUDA-event device time and a
+   note of what changed, flash_attention is timed at tinyllama's and
+   Jamba's prefill in fp32 and bf16, SDPA beside each, and ssm_scan at
+   Jamba's prefill in fp32 and bf16;
 7. the denoiser_step kernel against its plain version (A = 10, H = 256,
    F in {16, 20}, B in {256, 300, 4096}, the timestep embedding one row
    per batch row and one row for all, and a 1-D input);
@@ -65,7 +67,12 @@ runs, one line per result:
    as soon as it is served, and a profiled generate at S = 2048;
 13. the ssm_scan kernel against its plain version: Jamba's prefill
    (B = 1, S = 2048, I = 8192, N = 16) from a zero and a random state,
-   S and I ragged, S = 1, N = 4, and Jamba's prefill in bf16;
+   S and I ragged, S = 1, N = 4, Jamba's prefill in bf16 and with B and C
+   split from x_proj, S off the 64-step chunk (2047, 129) and shorter than
+   one 8-step run (5), B = 2 with I = 520 in bf16 and at N = 4, strong
+   decays (dt up to 8, A down to -e^3), and the staging's narrower paths:
+   B and C split at 2-byte (bf16) and 8-byte (fp32) offsets, bf16 at
+   N = 4, and I = 518 (fp32) and 517 (bf16), rows off 16 bytes;
 14. the hybrid served: phase 12's function on a 4-server engine serving
    one Jamba period without experts at full width
    (`jamba-v0.1-52b-8l-dense`: 8 layers, 7 Mamba + 1 attention, 2.7 B
@@ -121,14 +128,18 @@ KERNELS = ("env_step", "denoiser_chain", "denoiser_step", "flash_attention",
 # the redesigned kernels and what changed (their earlier times are in
 # PERF.md section 6)
 REDESIGNED = {
-    "env_step": ("EnvStepPlan: statics checked once, one pointer table, "
-                 "three output buffers"),
+    "env_step": ("kernel: one round of loads per env into shared memory, "
+                 "no reads back, a one-warp build for envs of <= 32 rows, 2 "
+                 "envs per block; call: EnvStepPlan"),
     "denoiser_chain": ("8-CTA cluster, resident weights, 3xTF32 mma, "
                        "bulk-copy exchanges"),
     "denoiser_step": ("one step of the chain's cluster (mlp_common.cuh), "
                       "x, temb and f_s read in place, no concat"),
     "flash_attention": ("TMA ring + producer warp, wgmma with Q and P from "
-                        "registers, 3xTF32 for fp32, bf16 native")}
+                        "registers, 3xTF32 for fp32, bf16 native"),
+    "ssm_scan": ("S split over a block's threads: 32 channels x 8 segments, "
+                 "runs folded, shuffle scan with the chunk carry, one "
+                 "ex2.approx per state and step, cp.async ring")}
 # exponentials per second on the special-function units: 16 per clock per
 # SM (Hopper white paper: 4 per SM sub-partition), 132 SMs, 1.98 GHz boost
 SFU_EXP_PER_S = 16 * 132 * 1.98e9
@@ -139,16 +150,41 @@ SFU_EXP_PER_S = 16 * 132 * 1.98e9
 # the two y round to bf16 apart by at most one ulp (2^-8 relative)
 SSM_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 # (case, B, S, I, N, dtype, random h0, dt_rank: B and C split from a
-# (B, S, dt_rank + 2N) tensor as x_proj gives them, or 0 for contiguous)
+# (B, S, dt_rank + 2N) tensor as x_proj gives them, or 0 for contiguous,
+# dt_max: 0 for dt = softplus(randn) and A = -exp(randn) as in the model,
+# else strong decays, dt uniform in [0, dt_max) and A = -exp(U(-3, 3)))
 SSM_CASES = (
-    ("jamba prefill, zero h0", 1, 2048, 8192, 16, torch.float32, False, 0),
-    ("jamba prefill, random h0", 1, 2048, 8192, 16, torch.float32, True, 0),
-    ("S and I ragged", 2, 300, 520, 16, torch.float32, True, 0),
-    ("one step", 1, 1, 64, 16, torch.float32, True, 0),
-    ("N = 4", 1, 7, 16, 4, torch.float32, True, 0),
-    ("jamba prefill bf16", 1, 2048, 8192, 16, torch.bfloat16, True, 0),
+    ("jamba prefill, zero h0", 1, 2048, 8192, 16, torch.float32, False, 0, 0),
+    ("jamba prefill, random h0", 1, 2048, 8192, 16, torch.float32, True, 0,
+     0),
+    ("S and I ragged", 2, 300, 520, 16, torch.float32, True, 0, 0),
+    ("one step", 1, 1, 64, 16, torch.float32, True, 0, 0),
+    ("N = 4", 1, 7, 16, 4, torch.float32, True, 0, 0),
+    ("jamba prefill bf16", 1, 2048, 8192, 16, torch.bfloat16, True, 0, 0),
     ("jamba prefill, B and C split from x_proj", 1, 2048, 8192, 16,
-     torch.float32, True, 256),
+     torch.float32, True, 256, 0),
+    ("S = 2047, off the chunk", 1, 2047, 8192, 16, torch.float32, True, 0, 0),
+    ("S = 129, one step past two chunks", 2, 129, 1024, 16, torch.float32,
+     True, 0, 0),
+    ("S = 5, shorter than a run", 1, 5, 256, 16, torch.float32, True, 0, 0),
+    ("B = 2, I = 520, bf16", 2, 300, 520, 16, torch.bfloat16, True, 0, 0),
+    ("B = 2, I = 520, N = 4, B and C split", 2, 300, 520, 4, torch.float32,
+     True, 3, 0),
+    ("strong decays", 1, 2048, 1024, 16, torch.float32, True, 0, 8.0),
+    # the staging's narrower paths: 2-byte loads of B and C (bf16 split at
+    # an odd offset), 8-byte copies of B and C (fp32 split at 8 bytes) and
+    # of bf16 rows of N = 4, and rows of dt, x and y off 16 bytes (y stored
+    # element by element; dt and x by 8-byte copies in fp32, 2-byte loads
+    # in bf16)
+    ("bf16, B and C split at dt_rank 3", 2, 300, 520, 16, torch.bfloat16,
+     True, 3, 0),
+    ("B and C split at dt_rank 2", 2, 300, 520, 16, torch.float32, True, 2,
+     0),
+    ("bf16, N = 4", 2, 300, 520, 4, torch.bfloat16, True, 0, 0),
+    ("I = 518, rows off 16 bytes", 2, 129, 518, 16, torch.float32, True, 0,
+     0),
+    ("bf16, I = 517, rows on 2 bytes", 1, 300, 517, 16, torch.bfloat16,
+     True, 0, 0),
 )
 # phase 14's config: one period of Jamba (7 Mamba + 1 attention layer) at
 # full width with dense FFNs, registered in the port's registry at run time
@@ -181,13 +217,16 @@ def log(*parts):
 
 
 # SASS instructions that show a kernel on the card's own units: `wgmma`
-# (HGMMA), TMA loads (UTMALDG) and `mma.sync` (HMMA); which kernel
-# functions must issue which (every instantiation of the flash kernel, both
-# cluster kernels)
-SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+# (HGMMA), TMA loads (UTMALDG), `mma.sync` (HMMA) and the special-function
+# unit (MUFU); which kernel functions must issue which (every instantiation
+# of the flash kernel, both cluster kernels, the scan)
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "MUFU")
 SASS_NEEDS = {"flash_attention_kernel": ("HGMMA", "UTMALDG"),
               "chain_cluster_kernel": ("HMMA",),
-              "step_cluster_kernel": ("HMMA",)}
+              "step_cluster_kernel": ("HMMA",),
+              "ssm_scan_kernel": ("MUFU",)}
+# kernels whose instantiations may not spill (ptxas -v, phase 1)
+NO_SPILLS = ("ssm_scan", "env_step")
 
 
 def sass_counts(name):
@@ -207,6 +246,24 @@ def sass_counts(name):
             for op in pattern.findall(line):
                 counts[fn][op] += 1
     return counts
+
+
+def check_ptxas(names):
+    """Logs ptxas's registers and spills per kernel function from each
+    library's build log and fails where a kernel of NO_SPILLS spills."""
+    from repro_torch.kernels import build as KB
+    for name in names:
+        fn = None
+        for line in KB.build_log_path(name).read_text().splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                fn = m.group(1)
+            if "registers" in line or "spill" in line:
+                log(f"phase 1 ptxas {name}: {line.strip()}")
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and name in NO_SPILLS:
+                assert m.group(1) == m.group(2) == "0", (name, fn, line)
 
 
 def check_sass(names):
@@ -422,39 +479,43 @@ def _env_actions(rng, B, A, l, step, decisions):
 
 
 def phase_env_step(dev, B=256, K=32, l=8, Es=(8, 12), models=(1, 3),
-                   decisions=3, plan_B=253):
+                   decisions=3, plan_B=253, extra=((5, 30), (8, 40))):
     """env_step kernel vs plain version through `env_step_fused` (a plan
-    built per call), then through one `EnvStepPlan` kept across decisions
-    at B = `plan_B` (not a multiple of the kernel's 4 envs per block), with
-    and without faults; returns (max float error, timing inputs at the
-    paper-8srv main-path shape)."""
+    built per call) on every E in `Es` x models at K tasks, and on each
+    (E, K) of `extra` with one model: E = 5, K = 30 gives rows of 20 and
+    120 bytes, off 16-byte boundaries, and K = 40 > 32 runs the kernel's
+    instantiation for envs wider than a warp; then through one
+    `EnvStepPlan` kept across decisions at B = `plan_B` (not a multiple of
+    the kernel's 2 envs per block), with and without faults; returns (max
+    float error, timing inputs at the paper-8srv main-path shape)."""
     from repro_torch.core import env as EV
     from repro_torch.kernels.env_step import kernel as EKK
     from repro_torch.kernels.env_step import ops as EK
     worst, timing = 0.0, None
-    for E in Es:
-        for nm in models:
-            for faults in (False, True):
-                rng = np.random.default_rng(E * 10 + nm + 100 * faults)
-                ms = (1.0, 0.5, 2.0)[:nm] if nm > 1 else ()
-                cfg = EV.EnvConfig(num_servers=E, max_tasks=K, queue_window=l,
-                                   num_models=nm, model_scale=ms)
-                tr = to_dev(np_traces(rng, B, K, E, nm, faults), dev)
-                st = EV.EnvState(**to_dev(np_states(rng, B, E, K, nm), dev))
-                statics = EV.decision_statics(cfg, tr)
-                q = EV.visible_queue(cfg, tr, st)
-                for step in range(decisions):
-                    a = torch.from_numpy(_env_actions(
-                        rng, B, cfg.action_dim, l, step, decisions)).to(dev)
-                    if (E, nm, faults, step) == (Es[0], 1, False, 0):
-                        timing = (cfg, statics, st, a, q)
-                    got = EK.env_step_fused(cfg, statics, st, a, q)
-                    want = EK.env_step_fused(cfg, statics, st, a, q, impl="ref")
-                    sync(dev)
-                    worst = max(worst, _env_step_same(
-                        got, want, f"env_step E={E} nm={nm} faults={faults} "
-                        f"step={step}"))
-                    st, q = want[0], want[1]
+    shapes = [(E, K, nm, E * 10 + nm) for E in Es for nm in models] \
+        + [(E, Ku, 1, 1000 + E * 10 + Ku) for E, Ku in extra]
+    for E, Ku, nm, seed in shapes:
+        for faults in (False, True):
+            rng = np.random.default_rng(seed + 100 * faults)
+            ms = (1.0, 0.5, 2.0)[:nm] if nm > 1 else ()
+            cfg = EV.EnvConfig(num_servers=E, max_tasks=Ku, queue_window=l,
+                               num_models=nm, model_scale=ms)
+            tr = to_dev(np_traces(rng, B, Ku, E, nm, faults), dev)
+            st = EV.EnvState(**to_dev(np_states(rng, B, E, Ku, nm), dev))
+            statics = EV.decision_statics(cfg, tr)
+            q = EV.visible_queue(cfg, tr, st)
+            for step in range(decisions):
+                a = torch.from_numpy(_env_actions(
+                    rng, B, cfg.action_dim, l, step, decisions)).to(dev)
+                if (E, Ku, nm, faults, step) == (Es[0], K, 1, False, 0):
+                    timing = (cfg, statics, st, a, q)
+                got = EK.env_step_fused(cfg, statics, st, a, q)
+                want = EK.env_step_fused(cfg, statics, st, a, q, impl="ref")
+                sync(dev)
+                worst = max(worst, _env_step_same(
+                    got, want, f"env_step E={E} K={Ku} nm={nm} "
+                    f"faults={faults} step={step}"))
+                st, q = want[0], want[1]
     for faults in (False, True):
         rng = np.random.default_rng(7 + faults)
         E = Es[0]
@@ -479,8 +540,9 @@ def phase_env_step(dev, B=256, K=32, l=8, Es=(8, 12), models=(1, 3),
         # outputs kept from earlier decisions were not overwritten
         for step, (got, want) in enumerate(kept):
             _env_step_same(got, want, f"EnvStepPlan kept step {step}")
-    log(f"phase 2 env_step kernel == plain: {len(Es) * len(models) * 2} cases x "
-        f"{decisions} decisions at B={B} K={K} l={l}, NaN actions in the last, "
+    log(f"phase 2 env_step kernel == plain: {len(shapes) * 2} cases x "
+        f"{decisions} decisions at B={B} l={l} (K={K}, and (E, K) in "
+        f"{list(extra)}), NaN actions in the last, "
         f"and one EnvStepPlan per fault mode kept over {decisions} decisions "
         f"at B={plan_B}; ints, bools and clock exact, max float err "
         f"{worst:.3g} (tol {ENV_ATOL})")
@@ -1074,15 +1136,21 @@ def phase_ssm(dev, cases=SSM_CASES):
     `selective_scan`, the error of y and of hT relative to max(1, max|.|)
     of the plain version's. A case with dt_rank > 0 takes B and C as splits
     of one (B, S, dt_rank + 2N) tensor, strided views as `_mamba_inner`
-    gives them on the main path; returns (max fp32 error of y, timing inputs at
-    Jamba's prefill shape from a random state)."""
+    gives them on the main path (dt_rank = 3 leaves their rows 4-byte
+    aligned only); a case with dt_max > 0 draws strong decays; returns
+    (max fp32 error of y, timing inputs at Jamba's prefill shape from a
+    random state)."""
     from repro_torch.kernels.ssm_scan import ops as SS
     from repro_torch.models.layers import softplus
     g = torch.Generator(device=dev).manual_seed(13)
     worst, timing = {}, None
-    for (case, B, S, I, N, dtype, rand_h0, dt_rank) in cases:
+    for (case, B, S, I, N, dtype, rand_h0, dt_rank, dt_max) in cases:
         rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)  # noqa: E731
-        dt, a = softplus(rnd(B, S, I)), -torch.exp(rnd(I, N))
+        if dt_max:
+            uni = lambda *shape: torch.rand(shape, generator=g, device=dev)  # noqa: E731
+            dt, a = dt_max * uni(B, S, I), -torch.exp(6 * uni(I, N) - 3)
+        else:
+            dt, a = softplus(rnd(B, S, I)), -torch.exp(rnd(I, N))
         if dt_rank:
             _, bm, cm = torch.split(rnd(B, S, dt_rank + 2 * N),
                                     [dt_rank, N, N], dim=-1)
@@ -1402,12 +1470,12 @@ def measure(env_timing, chain_timing, step_timing, flash_timing, ssm_timing,
     single PyTorch call computes it. `launches` is each kernel's count
     summed over the main-path runs (phases 4, 8, 9, 10, 12 and 14),
     `launches_per_request` a serving kernel's per served request in phases
-    12 and 14. The four redesigned kernels (env_step, denoiser_chain,
-    denoiser_step, flash_attention) also carry `event_device_ms` (CUDA
-    events with the host ahead of the card, `device_ms_events`) and, as
-    text, what changed; the env_step row times the call the main path
-    makes, an `EnvStepPlan`'s, and the denoiser_step row the distilled
-    decision's call, one embedding row for all."""
+    12 and 14. The redesigned kernels (all five) also carry
+    `event_device_ms` (CUDA events with the host ahead of the card,
+    `device_ms_events`) and, as text, what changed; the env_step row times
+    the call the main path makes, an `EnvStepPlan`'s, and the denoiser_step
+    row the distilled decision's call, one embedding row for all; the
+    ssm_scan row's `variants` time Jamba's prefill in fp32 and bf16."""
     from repro_torch.kernels.denoiser import kernel as DK
     from repro_torch.kernels.denoiser.ref import denoiser_chain_ref, denoiser_ref
     from repro_torch.kernels.env_step import ops as EKO
@@ -1462,8 +1530,7 @@ def measure(env_timing, chain_timing, step_timing, flash_timing, ssm_timing,
                                       impl="ref")
     states = sB * sS * sI * sN                      # one exp per state and step
     ssm_flops = 6 * states
-    # dt, A, B, C, x and h0 in; y and hT out
-    ssm_bytes = nbytes(dt, sa, sbm, scm, sx, sh0, dt, sh0)
+    ssm_bytes, ssm_terms = ssm_work(dt, sa, sbm, scm, sx, sh0)
     fp32 = lambda f: {"fp32_operations": f / FP32_FLOP_PER_S}  # noqa: E731
     rows = []
     for (name, src, replaces, k_fn, p_fn, lib_fn, nb, flops, ops_s, kname,
@@ -1490,7 +1557,7 @@ def measure(env_timing, chain_timing, step_timing, flash_timing, ssm_timing,
             ("ssm_scan", "src/repro_torch/csrc/ssm_scan.cu",
              "src/repro/kernels/ssm_scan/kernel.py:61", ssm_k, ssm_p, None,
              ssm_bytes, ssm_flops,
-             {"exponentials": states / SFU_EXP_PER_S, **fp32(ssm_flops)},
+             {k: v for k, v in ssm_terms.items() if k != "bytes"},
              "ssm_scan_kernel", 20)):
         call_ms = time_ms(k_fn, it)
         dev_ms, seen = kernel_device_ms(k_fn, kname)
@@ -1516,6 +1583,8 @@ def measure(env_timing, chain_timing, step_timing, flash_timing, ssm_timing,
                              "redesigned": REDESIGNED[name]})
         if name == "flash_attention":
             rows[-1]["variants"] = flash_variants(flash_timing)
+        if name == "ssm_scan":
+            rows[-1]["variants"] = ssm_variants(ssm_timing)
         log(f"phase 6 timing {name} [{card}]: " + json.dumps(rows[-1]))
     return rows
 
@@ -1551,6 +1620,44 @@ def flash_work(q, k, v):
         ops = {"bf16_operations": flops / BF16_FLOP_PER_S}
     return nb, flops, {"bytes": nb / HBM_BYTES_PER_S,
                        "exponentials": pairs / SFU_EXP_PER_S, **ops}
+
+
+def ssm_work(dt, a, bm, cm, x, h0):
+    """(bytes, bound terms in seconds) of the selective scan: dt, A, B, C,
+    x and h0 read once, y (dt's dtype) and hT written once; one
+    exponential per state and step at the SFU rate and 6 fp32 operations
+    per state and step."""
+    B, S, I = dt.shape
+    states = B * S * I * a.shape[1]
+    nb = nbytes(dt, a, bm, cm, x, h0, dt, h0)
+    return nb, {"bytes": nb / HBM_BYTES_PER_S,
+                "exponentials": states / SFU_EXP_PER_S,
+                "fp32_operations": 6 * states / FP32_FLOP_PER_S}
+
+
+def ssm_variants(inputs, it=20):
+    """ssm_scan at Jamba's prefill (`inputs`: fp32 dt, A, B, C, x, h0) in
+    fp32 and bf16 (dt, B, C and x cast; A and h0 stay fp32): device ms
+    (CUDA events with the host ahead), call ms, the plain version's ms and
+    the bound with its terms."""
+    from repro_torch.kernels.ssm_scan import ops as SS
+    dt32, a, bm32, cm32, x32, h0 = inputs
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dt, bm, cm, x = (t.to(dtype) for t in (dt32, bm32, cm32, x32))
+        k_fn = lambda: SS.selective_scan(dt, a, bm, cm, x, h0)  # noqa: E731
+        p_fn = lambda: SS.selective_scan(dt, a, bm, cm, x, h0,  # noqa: E731
+                                         impl="ref")
+        nb, terms = ssm_work(dt, a, bm, cm, x, h0)
+        bound, top = bound_of(terms)
+        out.append({
+            "dtype": str(dtype).replace("torch.", ""), "shape": list(dt.shape),
+            "N": a.shape[1], "event_device_ms": device_ms_events(k_fn, it),
+            "call_ms": time_ms(k_fn, it), "plain_ms": time_ms(p_fn, 3),
+            "bound_ms": 1e3 * bound, "bound_by": top,
+            "bound_terms_ms": {n: 1e3 * v for n, v in terms.items()},
+            "bytes": nb})
+    return out
 
 
 def flash_variants(shapes, it=20):
@@ -1601,10 +1708,7 @@ def main():
     report = KB.build(KERNELS)
     log(f"phase 1 built {sorted(report)} in parallel in "
         f"{time.perf_counter() - t0:.3f} s")
-    for name, r in report.items():
-        for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"phase 1 ptxas {name}: {line.strip()}")
+    check_ptxas(KERNELS)
     check_sass(KERNELS)
 
     t0 = time.perf_counter()

@@ -13,43 +13,101 @@
 //
 // What bounds it on an H100. At the Jamba prefill shape (B = 1, S = 2048,
 // I = 8192, N = 16, fp32) the function reads dt and x and writes y, 3 x 64 MB,
-// plus 1.8 MB of B, C, A, h0 and hT: 203 MB, 60.5 us at 3.35 TB/s. It takes
+// plus 1.8 MB of B, C, A, h0 and hT: 203 MB, 60.6 us at 3.35 TB/s. It takes
 // S * I * N = 268 M exponentials; at the SFU's 16 per clock per SM (Hopper
 // white paper: 4 per SM sub-partition), 132 SMs and the 1.98 GHz boost clock
 // that is 64.2 us; its ~6 other fp32 operations per state and step take
 // 24 us at 67 TFLOP/s. So the bound is the exponentials, 64 us, with the
-// bytes close behind.
+// bytes close behind. Each exponential is taken exactly once.
 //
-// The TPU kernel carries the (block_i, N) state in VMEM across a sequential
-// grid axis over S. Blocks on the H100 run in parallel and in no order, so
-// here each block walks the whole sequence in a loop for its channels, with
-// the state in registers:
+// Design: the sequence is split across the threads of a block, not across
+// blocks, and combined with the associative operator of the reference's
+// chunked scan (`_ssm_comb`, repro/models/blocks.py):
+// (a1, b1) o (a2, b2) = (a2 a1, a2 b1 + b2).
 //
-//   * one block per (64 channels, batch row); a channel's N states lie across
-//     N / 4 neighbouring lanes, 4 states per lane (16 N threads a block), so
-//     Jamba's B * I * N = 131,072 states are 1,024 warps, not 256; y_t is the
-//     sum of each lane's 4 products and N / 4 - 1 xor-shuffles;
-//   * the scan's loop-carried dependency is one FMA per state; the
-//     exponential and the input term of a step do not depend on h, so a
-//     lane's 4 states and the warps of an SM overlap them;
-//   * a tile of TS timesteps of dt and x (64 channels wide, coalesced rows),
-//     and of B_t and C_t (N floats, shared by every channel of the row), is
-//     staged in shared memory as fp32; the next tile's loads are issued into
-//     registers before the current tile is scanned, so their latency hides
-//     behind it; y_t goes to a shared tile and out in coalesced rows;
-//   * the exponential is `expf` (full fp32 accuracy, no fast-math).
+//   * A block holds CB = 32 channels x P = 8 time segments (256 threads); a
+//     warp holds 4 channels x 8 segments, so a channel's segments are 8
+//     neighbouring lanes. The block walks S in chunks of L = P x R = 64
+//     steps; the thread of segment s owns the run of R = 8 consecutive
+//     steps s R .. s R + R - 1 of its channel in each chunk.
+//   * Per state n (G = 2 at a time, the N / G groups unrolled so that one
+//     group's scan overlaps the next one's fold): a_t = 2^(dt_t A'_n) with
+//     A' = A log2 e
+//     formed once per block (one FMUL and one MUFU.EX2, `ex2.approx.ftz`),
+//     b_t = (dt_t x_t) B_t[n]; the run is folded to its cumulative pairs
+//     (prod a, h from 0) in registers; the carry into the chunk is folded
+//     into segment 0's pair; an inclusive scan of the channel's 8 pairs by
+//     shuffles (3 levels) gives each segment its end state and, one lane
+//     up, its start state; the run is swept again from there with the
+//     cumulative pairs still in registers (h_t = A_t h_in + B_t, no second
+//     exponential, no serial chain), accumulating y_t += C_t[n] h_t. The
+//     last segment's end state is the next chunk's carry.
+//   * dt, x, B and C tiles of a chunk are staged by cp.async into a
+//     two-stage shared-memory ring: the next chunk's copies fly while this
+//     one is scanned. dt and x rows are 32 channels wide (coalesced); B and
+//     C rows are read in place through their strides (the x_proj splits).
+//     Copies are 16 bytes where a tensor's base and strides allow, else 8 or
+//     4 (zero-filled past S and I), else, for bf16 on 2-byte alignment,
+//     plain loads. Each segment's rows are followed by 16 bytes of padding,
+//     so the 8 segments of a warp read 8 different banks.
+//   * y goes into the stage's y tile (each thread its own elements) and
+//     leaves in coalesced rows during the next chunk's pass, so one barrier
+//     per chunk serves the staging, the y tile and the ring; hT is written
+//     from the last chunk's carry.
+//   * One launch per call, no device scratch; the grid is (I / 32, B), 256
+//     blocks at Jamba's shape, two resident per SM (__launch_bounds__(256,
+//     2): at most 128 registers; G = 4 spills there), 16 warps per SM.
 //
-// Ragged edges are masked here, not padded by the caller: channels at or past
-// I scan zeros and store nothing, and the last tile runs only the steps left.
-// dt, x, B and C are read through batch and sequence strides (unit stride
-// along the last axis), so the x_proj splits B and C are read in place.
+// What holds it above the bound (`tools/ab_decision.py --kernels`,
+// PERF.md), on an H100 at Jamba's shape: at N = 4 (the same dt, x and y, a
+// quarter of the per-state work) it takes ~0.083 ms, 1.4x the bytes'
+// bound; each further state adds ~7.6 us, against 4.0 us of exponentials
+// at the SFU rate. So neither the bytes nor the exponentials hold it
+// alone: a state's exponential, shuffles, B and C reads and FMAs take
+// ~1.9x the SFU time with 16 warps per SM (the register file's limit at
+// ~120 registers a thread) to hide their latency. Bulk copies of one row
+// per thread (cp.async.bulk on an mbarrier) instead of the cp.async
+// pieces were slower.
+//
+// Ragged edges are masked here, not padded by the caller: channels past I
+// and steps past S are staged as zeros, and a zero step is the identity
+// (a = 2^0 = 1, b = 0), so the carry passes it unchanged; only rows and
+// channels inside (S, I) are stored.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int CB = 64;  // channels per block
-constexpr int TS = 32;  // timesteps per shared-memory tile
+constexpr int CB = 32;          // channels per block
+constexpr int P = 8;            // segments per chunk (a channel's lanes)
+constexpr int R = 8;            // steps per segment
+constexpr int L = P * R;        // steps per chunk
+constexpr int NT = CB * P;      // threads per block
+constexpr int CPW = 32 / P;     // channels per warp
+constexpr int PAD = 16;         // bytes after each segment's rows in a tile
+// states a group of the sweep: the cumulative pairs of GROUP states x R
+// steps stay in registers (2 GROUP R of them); the groups are unrolled, so
+// one group's scan overlaps the next one's fold
+constexpr int GROUP = 2;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// byte sizes of the shared-memory layout (mirrored by `ssm_smem_bytes` in
+// kernels/ssm_scan/kernel.py): per stage a dt, an x and a y tile of P
+// segments of R rows of CB elements, a B and a C tile of P segments of R
+// rows of N elements; two stages; then A' and the carry, CB rows of N + 4
+// floats
+__host__ __device__ constexpr int x_seg(int elt) { return R * CB * elt + PAD; }
+__host__ __device__ constexpr int bc_seg(int n, int elt) {
+  return R * n * elt + PAD;
+}
+__host__ __device__ constexpr int stage_bytes(int n, int elt) {
+  return P * (3 * x_seg(elt) + 2 * bc_seg(n, elt));
+}
+__host__ __device__ constexpr int smem_bytes(int n, int elt) {
+  return 2 * stage_bytes(n, elt) + 2 * CB * (n + 4) * 4;
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -60,116 +118,279 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-template <typename T, int N>
-__global__ void __launch_bounds__(16 * N) ssm_scan_kernel(
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// G consecutive values from shared memory as floats (16-, 8- or 4-byte
+// aligned as G and the element size give)
+template <int G>
+__device__ __forceinline__ void load_g(float* v, const float* p) {
+  if constexpr (G == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else if constexpr (G == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x; v[1] = q.y;
+  } else {
+#pragma unroll
+    for (int j = 0; j < G; ++j) v[j] = p[j];
+  }
+}
+template <int G>
+__device__ __forceinline__ void load_g(float* v, const __nv_bfloat16* p) {
+  static_assert(G % 2 == 0, "bf16 groups load in pairs");
+#pragma unroll
+  for (int j = 0; j < G; j += 2) {
+    const float2 f = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(p + j));
+    v[j] = f.x; v[j + 1] = f.y;
+  }
+}
+template <int G>
+__device__ __forceinline__ void store_g(float* p, const float* v) {
+  if constexpr (G == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < G; ++j) p[j] = v[j];
+  }
+}
+
+// `unit` bytes (16, 8 or 4) from device to shared memory by cp.async, the
+// first `valid` from src and the rest zero; unit 2 (bf16 on 2-byte
+// alignment) is a plain copy
+__device__ __forceinline__ void copy_unit(void* dst, const void* src, int unit,
+                                          int valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if (unit == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(d), "l"(src), "r"(valid) : "memory");
+  else if (unit == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                 :: "r"(d), "l"(src), "r"(valid) : "memory");
+  else if (unit == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(d), "l"(src), "r"(valid) : "memory");
+  else
+    *static_cast<uint16_t*>(dst) =
+        valid ? *static_cast<const uint16_t*>(src) : uint16_t(0);
+}
+
+// Rows s0 .. s0 + L - 1 of a (S, width) slab (row stride ss elements, from
+// src) into a tile whose row t sits at (t / R) * seg + (t % R) * row_bytes;
+// elements past `width` and rows past S are zero. Row bytes and the unit
+// are powers of two, so a copy's row and offset are shifts.
+template <typename T>
+__device__ __forceinline__ void load_tile(unsigned char* tile, const T* src,
+                                          long long ss, int s0, int S,
+                                          int width, int row_bytes, int seg,
+                                          int unit, int tid) {
+  constexpr int E = sizeof(T);
+  const int lu = __ffs(unit) - 1, lr = __ffs(row_bytes) - 1 - lu;
+  for (int i = tid; i < (L << lr); i += NT) {
+    const int t = i >> lr, o = (i & ((1 << lr) - 1)) << lu, s = s0 + t;
+    const int col = o / E;
+    const int valid = s < S ? min(unit, max(0, (width - col) * E)) : 0;
+    const T* g = src + (long long)min(s, S - 1) * ss + (valid ? col : 0);
+    copy_unit(tile + (t / R) * seg + (t % R) * row_bytes + o, g, unit, valid);
+  }
+}
+
+template <typename T, int N, int G>
+__global__ void __launch_bounds__(NT, 2) ssm_scan_kernel(
     const T* __restrict__ dt, const float* __restrict__ a,
     const T* __restrict__ bm, const T* __restrict__ cm,
     const T* __restrict__ x, const float* __restrict__ h0,
     T* __restrict__ y, float* __restrict__ hT,
     long long dt_sb, long long dt_ss, long long x_sb, long long x_ss,
     long long b_sb, long long b_ss, long long c_sb, long long c_ss,
-    int S, int I) {
-  constexpr int LPC = N / 4;              // lanes per channel
-  constexpr int NT = CB * LPC;            // threads per block
-  constexpr int PER_X = TS * CB / NT;     // dt / x elements a thread stages
-  constexpr int PER_BC = TS * N / NT;     // B / C elements a thread stages
-  static_assert(N % 4 == 0 && 32 % LPC == 0, "N / 4 lanes must divide a warp");
-  static_assert(TS * CB % NT == 0 && TS * N % NT == 0, "tile split");
+    int S, int I, int u_dt, int u_x, int u_b, int u_c, int u_y) {
+  static_assert(N % G == 0 && 32 % P == 0, "groups and segments");
+  constexpr int E = sizeof(T);
+  constexpr int XS = x_seg(E), BS = bc_seg(N, E), ST = stage_bytes(N, E);
+  constexpr int AW = N + 4;     // row stride of A' and the carry, floats
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_a = reinterpret_cast<float*>(smem + 2 * ST);
+  float* s_h = s_a + CB * AW;
 
-  __shared__ float s_dt[TS][CB];
-  __shared__ float s_x[TS][CB];
-  __shared__ float s_y[TS][CB];
-  __shared__ __align__(16) float s_b[TS][N];
-  __shared__ __align__(16) float s_c[TS][N];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int seg = lane % P;                       // this thread's segment
+  const int cl = (tid / 32) * CPW + lane / P;     // its channel in the block
+  const int b = blockIdx.y, c0 = blockIdx.x * CB;
+  const int width = I - c0;                       // channels inside I
 
-  const int tid = threadIdx.x;
-  const int b = blockIdx.y;
-  const int c0 = blockIdx.x * CB;
-  const int cl = tid / LPC;               // this lane's channel in the block
-  const int q = tid % LPC;                // its quarter of the N states
-  const int ch = c0 + cl;
-  const bool live = ch < I;
-
-  const T* dt_b = dt + (long long)b * dt_sb + c0;
-  const T* x_b = x + (long long)b * x_sb + c0;
-  const T* b_b = bm + (long long)b * b_sb;
-  const T* c_b = cm + (long long)b * c_sb;
-
-  float av[4], h[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const long long k = (long long)ch * N + 4 * q + j;
-    av[j] = live ? a[k] : 0.f;
-    h[j] = live ? h0[(long long)b * I * N + k] : 0.f;
+  for (int i = tid; i < CB * N; i += NT) {
+    const int c = i / N, n = i % N;
+    const bool live = c < width;
+    s_a[c * AW + n] = live ? a[(long long)(c0 + c) * N + n] * LOG2E : 0.f;
+    s_h[c * AW + n] = live ? h0[((long long)b * I + c0 + c) * N + n] : 0.f;
   }
 
-  float r_dt[PER_X], r_x[PER_X], r_b[PER_BC], r_c[PER_BC];
-  // the tile from timestep s0 into registers; zeros past S and past I
-  auto load_tile = [&](int s0) {
-#pragma unroll
-    for (int k = 0; k < PER_X; ++k) {
-      const int e = tid + k * NT, t = e / CB, c = e % CB, s = s0 + t;
-      const bool ok = s < S && c0 + c < I;
-      r_dt[k] = ok ? to_f32(dt_b[(long long)s * dt_ss + c]) : 0.f;
-      r_x[k] = ok ? to_f32(x_b[(long long)s * x_ss + c]) : 0.f;
-    }
-#pragma unroll
-    for (int k = 0; k < PER_BC; ++k) {
-      const int e = tid + k * NT, t = e / N, n = e % N, s = s0 + t;
-      r_b[k] = s < S ? to_f32(b_b[(long long)s * b_ss + n]) : 0.f;
-      r_c[k] = s < S ? to_f32(c_b[(long long)s * c_ss + n]) : 0.f;
-    }
+  const T* dt_b = dt + b * dt_sb + c0;
+  const T* x_b = x + b * x_sb + c0;
+  const T* b_b = bm + b * b_sb;
+  const T* c_b = cm + b * c_sb;
+  auto issue = [&](int k) {   // chunk k's tiles into stage k % 2
+    unsigned char* st = smem + (k & 1) * ST;
+    const int s0 = k * L;
+    load_tile(st, dt_b, dt_ss, s0, S, width, CB * E, XS, u_dt, tid);
+    load_tile(st + P * XS, x_b, x_ss, s0, S, width, CB * E, XS, u_x, tid);
+    load_tile(st + 2 * P * XS, b_b, b_ss, s0, S, N, N * E, BS, u_b, tid);
+    load_tile(st + 2 * P * XS + P * BS, c_b, c_ss, s0, S, N, N * E, BS, u_c,
+              tid);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
   };
-  auto stage_tile = [&]() {
-#pragma unroll
-    for (int k = 0; k < PER_X; ++k) {
-      const int e = tid + k * NT;
-      s_dt[e / CB][e % CB] = r_dt[k];
-      s_x[e / CB][e % CB] = r_x[k];
-    }
-#pragma unroll
-    for (int k = 0; k < PER_BC; ++k) {
-      const int e = tid + k * NT;
-      s_b[e / N][e % N] = r_b[k];
-      s_c[e / N][e % N] = r_c[k];
+
+  // chunk k's y rows from the y tile of stage k % 2 to y, coalesced
+  T* y_b = y + (long long)b * S * I + c0;
+  auto store_y = [&](int k) {
+    constexpr int per_row = CB * E / 16;
+    const unsigned char* y_t = smem + (k & 1) * ST + 2 * P * XS + 2 * P * BS;
+    for (int i = tid; i < L * per_row; i += NT) {
+      const int t = i / per_row, o = (i % per_row) * 16, s = k * L + t;
+      const int col = o / E;
+      if (s >= S || col >= width) continue;
+      const unsigned char* src = y_t + (t / R) * XS + (t % R) * CB * E + o;
+      T* dst = y_b + (long long)s * I + col;
+      if (u_y == 16 && col + 16 / E <= width) {
+        *reinterpret_cast<int4*>(dst) = *reinterpret_cast<const int4*>(src);
+      } else {
+        for (int e = 0; e < 16 / E && col + e < width; ++e)
+          dst[e] = reinterpret_cast<const T*>(src)[e];
+      }
     }
   };
 
-  load_tile(0);
-  stage_tile();
-  __syncthreads();
-  for (int s0 = 0; s0 < S; s0 += TS) {
-    const int steps = min(TS, S - s0);
-    if (s0 + TS < S) load_tile(s0 + TS);  // in flight during the scan below
-    for (int t = 0; t < steps; ++t) {
-      const float dtv = s_dt[t][cl];
-      const float dtx = dtv * s_x[t][cl];
-      const float4 bv = *reinterpret_cast<const float4*>(&s_b[t][4 * q]);
-      const float4 cv = *reinterpret_cast<const float4*>(&s_c[t][4 * q]);
-      h[0] = expf(dtv * av[0]) * h[0] + dtx * bv.x;
-      h[1] = expf(dtv * av[1]) * h[1] + dtx * bv.y;
-      h[2] = expf(dtv * av[2]) * h[2] + dtx * bv.z;
-      h[3] = expf(dtv * av[3]) * h[3] + dtx * bv.w;
-      float p = h[0] * cv.x + h[1] * cv.y + h[2] * cv.z + h[3] * cv.w;
-#pragma unroll
-      for (int off = LPC / 2; off > 0; off >>= 1)
-        p += __shfl_xor_sync(0xffffffffu, p, off);
-      if (q == 0) s_y[t][cl] = p;
-    }
-    __syncthreads();  // the tile is scanned: s_y is full, s_dt .. s_c free
-    for (int e = tid; e < TS * CB; e += NT) {
-      const int t = e / CB, c = e % CB;
-      if (t < steps && c0 + c < I)
-        store_out(&y[((long long)b * S + s0 + t) * I + c0 + c], s_y[t][c]);
-    }
-    if (s0 + TS < S) stage_tile();
+  // One barrier per chunk: after it chunk k is staged, chunk k - 1's y is
+  // in its tile, and every thread is done with stage (k + 1) % 2 (chunk
+  // k - 1's inputs, and chunk k - 2's y, stored in the pass before).
+  const int chunks = (S + L - 1) / L;
+  issue(0);
+  for (int k = 0; k < chunks; ++k) {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();
+    if (k + 1 < chunks) issue(k + 1);
+    unsigned char* st = smem + (k & 1) * ST;
+    if (k > 0) store_y(k - 1);   // the previous chunk's y, staged last pass
+    const T* dt_s = reinterpret_cast<const T*>(st + seg * XS) + cl;
+    const T* x_s = reinterpret_cast<const T*>(st + P * XS + seg * XS) + cl;
+    T* y_s = reinterpret_cast<T*>(st + 2 * P * XS + 2 * P * BS + seg * XS)
+             + cl;
+    const T* b_s = reinterpret_cast<const T*>(st + 2 * P * XS + seg * BS);
+    const T* c_s =
+        reinterpret_cast<const T*>(st + 2 * P * XS + P * BS + seg * BS);
+    const float* a_c = s_a + cl * AW;
+    float* h_c = s_h + cl * AW;
+
+    float dtv[R], dtx[R], acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      dtv[r] = to_f32(dt_s[r * CB]);
+      dtx[r] = dtv[r] * to_f32(x_s[r * CB]);
+      acc[r] = 0.f;
+    }
+#pragma unroll
+    for (int g = 0; g < N; g += G) {
+      // fold the run: ca[j][r] = a_0 .. a_r, cb[j][r] = h_r from h = 0
+      float ap[G], ca[G][R], cb[G][R];
+      load_g<G>(ap, a_c + g);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float bv[G];
+        load_g<G>(bv, b_s + r * N + g);
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          const float e = exp2_approx(dtv[r] * ap[j]);
+          const float u = dtx[r] * bv[j];
+          ca[j][r] = r ? ca[j][r - 1] * e : e;
+          cb[j][r] = r ? fmaf(e, cb[j][r - 1], u) : u;
+        }
+      }
+      // the channel's segments: carry into segment 0, inclusive scan
+      float hc[G], hin[G], hout[G];
+      load_g<G>(hc, h_c + g);
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        float pa = ca[j][R - 1], pb = cb[j][R - 1];
+        if (seg == 0) { pb = fmaf(pa, hc[j], pb); pa = 0.f; }
+#pragma unroll
+        for (int d = 1; d < P; d *= 2) {
+          const float qb = __shfl_up_sync(FULL, pb, d, P);
+          if (2 * d < P) {
+            const float qa = __shfl_up_sync(FULL, pa, d, P);
+            if (seg >= d) { pb = fmaf(pa, qb, pb); pa *= qa; }
+          } else if (seg >= d) {
+            pb = fmaf(pa, qb, pb);
+          }
+        }
+        const float prev = __shfl_up_sync(FULL, pb, 1, P);
+        hin[j] = seg ? prev : hc[j];
+        hout[j] = pb;
+      }
+      __syncwarp();   // every lane has read the carry before it is replaced
+      if (seg == P - 1) store_g<G>(h_c + g, hout);
+      // sweep the run from its start state
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float cv[G];
+        load_g<G>(cv, c_s + r * N + g);
+#pragma unroll
+        for (int j = 0; j < G; ++j)
+          acc[r] = fmaf(cv[j], fmaf(ca[j][r], hin[j], cb[j][r]), acc[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) store_out(&y_s[r * CB], acc[r]);
   }
-  if (live) {
-    float4* out = reinterpret_cast<float4*>(
-        &hT[((long long)b * I + ch) * N + 4 * q]);
-    *out = make_float4(h[0], h[1], h[2], h[3]);
+  __syncthreads();
+  store_y(chunks - 1);
+
+  for (int i = tid; i < CB * N; i += NT) {
+    const int c = i / N, n = i % N;
+    if (c < width) hT[((long long)b * I + c0 + c) * N + n] = s_h[c * AW + n];
   }
+}
+
+// The widest copy (16, 8 or 4 bytes) that the base, the strides that matter
+// and the row's bytes allow; 2 for bf16 rows on 2-byte alignment.
+int unit_of(const void* p, long long sb, long long ss, int B, int S, int elt,
+            int row_bytes) {
+  for (int u = 16; u >= 4; u /= 2) {
+    if (reinterpret_cast<uintptr_t>(p) % u || row_bytes % u) continue;
+    if (B > 1 && (sb * elt) % u) continue;
+    if (S > 1 && (ss * elt) % u) continue;
+    return u;
+  }
+  return 2;
+}
+
+template <typename T, int N>
+int launch_n(const void* dt, const float* a, const void* bm, const void* cm,
+             const void* x, const float* h0, void* y, float* hT,
+             long long dt_sb, long long dt_ss, long long x_sb, long long x_ss,
+             long long b_sb, long long b_ss, long long c_sb, long long c_ss,
+             int B, int S, int I, cudaStream_t stream) {
+  constexpr int E = sizeof(T);
+  constexpr int smem = smem_bytes(N, E);
+  auto kern = ssm_scan_kernel<T, N, (N < GROUP ? N : GROUP)>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int u_dt = unit_of(dt, dt_sb, dt_ss, B, S, E, CB * E);
+  const int u_x = unit_of(x, x_sb, x_ss, B, S, E, CB * E);
+  const int u_b = unit_of(bm, b_sb, b_ss, B, S, E, N * E);
+  const int u_c = unit_of(cm, c_sb, c_ss, B, S, E, N * E);
+  const int u_y = unit_of(y, (long long)S * I, I, B, S, E, CB * E);
+  const dim3 grid((I + CB - 1) / CB, B);
+  kern<<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(dt), a, static_cast<const T*>(bm),
+      static_cast<const T*>(cm), static_cast<const T*>(x), h0,
+      static_cast<T*>(y), hT, dt_sb, dt_ss, x_sb, x_ss, b_sb, b_ss, c_sb,
+      c_ss, S, I, u_dt, u_x, u_b, u_c, u_y);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -178,23 +399,26 @@ int launch_t(const void* dt, const float* a, const void* bm, const void* cm,
              long long dt_sb, long long dt_ss, long long x_sb, long long x_ss,
              long long b_sb, long long b_ss, long long c_sb, long long c_ss,
              int B, int S, int I, int N, cudaStream_t stream) {
-  const dim3 grid((I + CB - 1) / CB, B);
-#define SSM_LAUNCH(NN)                                                      \
-  ssm_scan_kernel<T, NN><<<grid, 16 * NN, 0, stream>>>(                     \
-      static_cast<const T*>(dt), a,                                         \
-      static_cast<const T*>(bm), static_cast<const T*>(cm),                 \
-      static_cast<const T*>(x), h0, static_cast<T*>(y), hT, dt_sb, dt_ss,   \
-      x_sb, x_ss, b_sb, b_ss, c_sb, c_ss, S, I)
   switch (N) {
-    case 4: SSM_LAUNCH(4); break;
-    case 16: SSM_LAUNCH(16); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 4:
+      return launch_n<T, 4>(dt, a, bm, cm, x, h0, y, hT, dt_sb, dt_ss, x_sb,
+                            x_ss, b_sb, b_ss, c_sb, c_ss, B, S, I, stream);
+    case 16:
+      return launch_n<T, 16>(dt, a, bm, cm, x, h0, y, hT, dt_sb, dt_ss, x_sb,
+                             x_ss, b_sb, b_ss, c_sb, c_ss, B, S, I, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef SSM_LAUNCH
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
+
+// Shared memory of one block, bytes, for state size N and dtype (0 = fp32,
+// 1 = bf16); -1 for a pair the kernel is not built for.
+extern "C" int ssm_scan_smem_bytes(int N, int dtype) {
+  if ((N != 4 && N != 16) || (dtype != 0 && dtype != 1)) return -1;
+  return smem_bytes(N, dtype == 0 ? 4 : 2);
+}
 
 // dt, x: (B, S, I) with batch and sequence strides dt_sb, dt_ss, x_sb, x_ss;
 // bm, cm: (B, S, N) likewise; a: contiguous fp32 (I, N); h0, hT: contiguous

@@ -5,7 +5,8 @@ headers, so a build takes seconds). It is compiled on first use for
 `sm_90a` into `build/` at the root of the checkout, under a name that
 carries a hash of its source, the shared headers (`csrc/*.cuh`) and its
 flags, so an edited source is rebuilt and a stale library is never
-loaded. `build` starts one nvcc per source, all at once.
+loaded. `build` starts one nvcc per source, all at once, and keeps each
+build's nvcc output (ptxas's registers and spills) beside the library.
 """
 from __future__ import annotations
 
@@ -61,8 +62,8 @@ def build(names: Iterable[str]) -> Dict[str, dict]:
     t0 = time.perf_counter()
     for name in names:
         out = library_path(name)
-        if out.exists():
-            continue
+        if out.exists() and build_log_path(name).exists():
+            continue   # a library without its log is built again
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc_path(), *_flags(name), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
@@ -74,9 +75,15 @@ def build(names: Iterable[str]) -> Dict[str, dict]:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        build_log_path(name).write_text(log)
         os.replace(tmp, out)
         report[name] = {"seconds": time.perf_counter() - t0, "log": log}
     return report
+
+
+def build_log_path(name: str) -> Path:
+    """Where `build` kept the nvcc output of kernel `name`'s library."""
+    return library_path(name).with_suffix(".log")
 
 
 def raw_stream(device_index: int) -> int:

@@ -1,11 +1,19 @@
 """Wrapper of the CUDA env-step kernel (`csrc/env_step.cu`).
 
 Replaces the TPU kernel `repro/kernels/env_step/kernel.py::env_step_pallas`
-(`_env_step_kernel`). What bounds it on an H100: launch latency. Each env
-reads and writes a few KB, so at the paper's widths a decision over 256 envs
-moves under a MB. The kernel therefore gives each env one warp (lanes stride
-over servers and tasks, reductions are warp shuffles, no block barrier) and
-does the whole decision, the next queue and the observation in one launch.
+(`_env_step_kernel`). What bounds it on an H100: latency. Each env reads and
+writes a few KB, so at the paper's widths a decision over 256 envs moves
+under a MB (0.18 µs at the memory rate). The kernel gives each env one warp
+(two per block, so 256 envs reach 128 SMs; lanes stride over servers and
+tasks, reductions are warp shuffles and `__reduce_*_sync`, no block
+barrier) and does the whole decision, the next queue and the observation in
+one launch. Each warp issues every load its env needs in one round (one
+element a lane of every row, all loads before the first store) into its
+slice of shared memory (`env_smem_bytes`) and never reads device memory
+again; each output is written once. Envs of at most 32 servers, tasks,
+queue slots and action dims (every paper cell) run an instantiation whose
+lanes hold one element of every row, with gang counts taken across the
+warp's registers.
 
 The kernel takes a few microseconds; a call's host work took far longer, so
 `EnvStepPlan` binds the kernel to one rollout's constants: the statics are
@@ -28,6 +36,7 @@ import torch
 
 from repro_torch.core import env as EV
 from repro_torch.kernels import build as KB
+from repro_torch.kernels.denoiser.kernel import SMEM_LIMIT
 from repro_torch.kernels.env_step.ref import env_step_ref
 
 _INPUTS = ("time", "free", "smodel", "sgang", "sgsize", "tstatus", "tstart",
@@ -57,7 +66,33 @@ def _lib():
                                     ctypes.c_int, ctypes.c_int,
                                     ctypes.c_void_p]
     lib.env_step_launch.restype = ctypes.c_int
+    lib.env_step_smem_bytes.argtypes = [ctypes.POINTER(_Cfg), ctypes.c_int]
+    lib.env_step_smem_bytes.restype = ctypes.c_int
     return lib
+
+
+#: envs per block of the kernel (one warp each), fixed in csrc/env_step.cu
+ENV_WARPS = 2
+
+
+def _region(nbytes: int) -> int:
+    return (nbytes + 15) // 16 * 16
+
+
+def env_smem_bytes(E: int, K: int, l: int, A: int, F: int) -> int:
+    """Shared memory of one block of the env_step kernel, bytes, for E
+    servers, K tasks, l queue slots, A action dims and F fault columns (0:
+    no faults): `make_layout` in csrc/env_step.cu, region for region, each
+    on 16 bytes. A warp's slice holds the staged inputs (time, steps taken
+    and the cold flag in 16 bytes; the four server rows; the six task-state
+    rows; the seven statics over all K; the action; the queue's indices,
+    validity bytes and the K queued bytes; with faults the two windows of
+    E x F and the slow factors) and the work arrays (four int and one
+    float array of E, the K priorities)."""
+    ef = E * F
+    sizes = ([16] + [4 * E] * 4 + [4 * K] * 13 + [4 * A, 4 * l, l, K]
+             + [4 * ef, 4 * ef, 4 * E if F else 0] + [4 * E] * 5 + [4 * K])
+    return ENV_WARPS * sum(_region(n) for n in sizes)
 
 
 @functools.lru_cache(maxsize=None)
@@ -180,6 +215,17 @@ class EnvStepPlan:
             self._table[_SLOT[name]] = statics[key].data_ptr()
         self._dyn, self._outs, self._sizes = lay.dyn, lay.outs, lay.sizes
         self._cfg = ctypes.byref(_ccfg(cfg, F))
+        self.smem_bytes = env_smem_bytes(cfg.num_servers, cfg.max_tasks,
+                                         cfg.queue_window, cfg.action_dim, F)
+        if self.smem_bytes > SMEM_LIMIT:
+            raise ValueError(
+                f"env_step kernel: {self.smem_bytes} bytes of shared memory "
+                f"per block at E={cfg.num_servers} K={cfg.max_tasks} "
+                f"F={F}, over {SMEM_LIMIT}")
+        if dev.type == "cuda" and _lib().env_step_smem_bytes(
+                self._cfg, int(self.faulty)) != self.smem_bytes:
+            raise RuntimeError("csrc/env_step.cu and env_smem_bytes disagree "
+                               "on the shared-memory layout")
 
     def buffers(self):
         """Fresh output buffers {"f": float32, "i": int32, "b": bool}."""

@@ -14,12 +14,23 @@
   one rollout's constants. A plan on the CPU checks the same tensors and
   takes the plain version, so its spec checks, its output carving and its
   pointer table are all reachable here; the launch itself runs only on the
-  card (`chip_smoke.py` phase 2).
+  card (`chip_smoke.py` phase 2). `env_smem_bytes` mirrors the kernel's
+  shared-memory slices (one per env) and must fit every shape.
+* `ssm_plan` (kernels/ssm_scan/kernel.py) gives the scan kernel's chunk,
+  run, segments, grid and shared memory; every shape the port's paths give
+  it must fit a block's shared memory with two blocks resident per SM. A
+  torch emulation of the kernel's segmented scan (runs folded, the
+  channel's segments scanned with the chunk's carry first, runs swept
+  again) is held to the JAX package's sequential oracle at 2e-5, which
+  checks the combine order on the CPU.
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels.ssm_scan.ref import ssm_scan_ref as jax_scan_ref
+from repro_torch.common import config as TCFG
 from repro_torch.core import env as EV
 from repro_torch.core import workload as WL
 from repro_torch.kernels.denoiser import kernel as DK
@@ -27,6 +38,7 @@ from repro_torch.kernels.env_step import kernel as EK
 from repro_torch.kernels.env_step import ops as EKO
 from repro_torch.kernels.env_step.ref import env_step_ref
 from repro_torch.kernels.flash_attention import kernel as FK
+from repro_torch.kernels.ssm_scan import kernel as SK
 
 A, T_DIM, H = 10, 16, 256
 
@@ -287,3 +299,157 @@ def test_env_step_takes_one_cpu_path_through_the_plan():
     got = EKO.env_step_fused(cfg, statics, state, action, q, impl="ref")
     want = env_step_ref(cfg, statics, state, action, q)
     assert all(torch.equal(g, w) for g, w in zip(got[0], want[0]))
+
+
+@pytest.mark.parametrize("faults", [0, 4], ids=["plain", "faults"])
+@pytest.mark.parametrize("K", [30, 32])
+@pytest.mark.parametrize("E", [4, 5, 8, 12])
+def test_env_step_shared_memory_fits(E, K, faults):
+    """The kernel's two slices (one per env) fit the 48 KB a block gets
+    without opting in, at every server count of the cells, K 30 and 32,
+    l 8, with and without 4 fault columns; each region starts on 16 bytes,
+    so a slice is a multiple of 16 and a plan on the CPU carries the same
+    size."""
+    l, A = 8, 2 + 8
+    smem = EK.env_smem_bytes(E, K, l, A, faults)
+    assert smem % (16 * EK.ENV_WARPS) == 0
+    assert smem <= 48 * 1024
+    assert EK.env_smem_bytes(E, K, l, A, faults) >= EK.ENV_WARPS * 4 * (
+        4 * E + 13 * K + A + l) + EK.ENV_WARPS * (l + K)
+    cfg, statics, *_ = _setup(E=E, K=K, faults=bool(faults), B=3)
+    F = statics["f_down_start"].shape[2] if faults else 0
+    assert EK.EnvStepPlan(cfg, statics, 3).smem_bytes == \
+        EK.env_smem_bytes(E, K, l, cfg.action_dim, F)
+
+
+def test_env_step_shared_memory_by_region():
+    """paper-8srv (E 8, K 32, l 8, A 10, no faults), region by region: 16
+    bytes of scalars, 4 server rows of 32, 13 task rows of 128, the action
+    (40 -> 48), the queue's 32 + 8 (-> 16) + 32 bytes, 5 work rows of 32
+    and the 128 of priorities: 2224 bytes an env, 4448 a block."""
+    assert EK.env_smem_bytes(8, 32, 8, 10, 0) == 2 * (
+        16 + 4 * 32 + 13 * 128 + 48 + 32 + 16 + 32 + 5 * 32 + 128) == 4448
+    # faults add two E x F windows (128 bytes each at F 4) and E slow factors
+    assert EK.env_smem_bytes(8, 32, 8, 10, 4) == 4448 + 2 * (128 + 128 + 32)
+
+
+# -------------------------------------------------------------- ssm plan
+def _ssm_path_shapes():
+    """(B, S, I, N) the port's paths give the scan: Jamba's prefill at full
+    width (I 8192) for S from 1 to 2048, and the reduced configs of
+    tests/test_torch_mamba.py (inner 512, batch 2) at their lengths."""
+    jamba = TCFG.get_config("jamba-v0.1-52b")
+    red = jamba.reduced()
+    I, N = jamba.ssm.expand * jamba.d_model, jamba.ssm.state_dim
+    Ir, Nr = red.ssm.expand * red.d_model, red.ssm.state_dim
+    assert (I, N, Ir, Nr) == (8192, 16, 512, 16)
+    return ([(1, S, I, N) for S in (1, 5, 63, 64, 65, 129, 1000, 2047, 2048)]
+            + [(2, S, Ir, Nr) for S in (1, 12, 20, 28)]
+            + [(1, 7, 16, 4), (2, 300, 520, 4)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,S,I,N", _ssm_path_shapes())
+def test_ssm_plan_fits_every_path_shape(B, S, I, N, dtype):
+    """Shared memory within a block's 227 KB, two blocks resident per SM
+    (16 warps), the grid covering I by 32 channels and B, the chunks
+    covering S."""
+    plan = SK.ssm_plan(B, S, I, N, dtype)
+    assert plan.smem_bytes <= SK.SMEM_LIMIT == DK.SMEM_LIMIT
+    assert plan.blocks_per_sm >= 2
+    assert plan.blocks_per_sm * plan.threads // 32 >= 16
+    assert plan.chunk == plan.run * plan.segments == 64
+    assert plan.threads == plan.channels * plan.segments == 256
+    assert plan.grid == (-(-I // 32), B)
+    assert (plan.chunks - 1) * plan.chunk < S <= plan.chunks * plan.chunk
+    assert plan.smem_bytes == SK.ssm_smem_bytes(N, dtype.itemsize)
+
+
+def test_ssm_plan_at_jamba_prefill():
+    """256 blocks of 8 warps for 132 SMs at two per SM; 71,936 bytes of
+    shared memory in fp32 (two stages of dt, x, y, B and C tiles, 33,408
+    bytes each, and 5,120 of A' and carries), 39,168 in bf16."""
+    plan = SK.ssm_plan(1, 2048, 8192, 16, torch.float32)
+    assert (plan.grid, plan.chunks, plan.blocks_per_sm) == ((256, 1), 32, 2)
+    assert plan.smem_bytes == 2 * 33408 + 5120 == 71936
+    assert SK.ssm_plan(1, 2048, 8192, 16, torch.bfloat16).smem_bytes == 39168
+
+
+@pytest.mark.parametrize("N", [1, 2, 8, 32])
+def test_ssm_plan_raises_on_state_sizes_it_does_not_take(N):
+    with pytest.raises(ValueError, match=f"state size {N} not in"):
+        SK.ssm_plan(1, 64, 64, N, torch.float32)
+
+
+def test_ssm_plan_rejects_bad_arguments():
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        SK.ssm_plan(1, 64, 64, 16, torch.float16)
+    with pytest.raises(ValueError, match="empty input"):
+        SK.ssm_plan(1, 0, 64, 16, torch.float32)
+
+
+def _segmented_scan(dt, a, bm, cm, x, h0):
+    """The kernel's scan in torch, op for op in its combine order: S in
+    chunks of P runs of R steps (zero steps past S); per run the cumulative
+    pairs (prod a, h from 0) with a = 2^(dt A log2 e); the chunk's carry
+    folded into segment 0's pair; an inclusive Hillis-Steele scan of the P
+    pairs (the last level updates h only); each run swept from the end
+    state of the segment before it; y summed over N."""
+    P, R = SK.SSM_SEGMENTS, SK.SSM_RUN
+    L = P * R
+    B, S, I = dt.shape
+    nc = -(-S // L)
+
+    def chunks(t):
+        t = torch.nn.functional.pad(t, (0, 0, 0, nc * L - S))
+        return t.reshape(B, nc, P, R, t.shape[-1])
+    dt, x, bm, cm = (chunks(t) for t in (dt, x, bm, cm))
+    a2 = a * torch.tensor(1.4426950408889634, dtype=torch.float32)
+    h = h0.clone()
+    ys = []
+    for k in range(nc):
+        e = torch.exp2(dt[:, k, ..., None] * a2)          # (B, P, R, I, N)
+        u = (dt[:, k] * x[:, k])[..., None] * bm[:, k, :, :, None, :]
+        ca, cb = [e[:, :, 0]], [u[:, :, 0]]
+        for r in range(1, R):
+            ca.append(ca[-1] * e[:, :, r])
+            cb.append(e[:, :, r] * cb[-1] + u[:, :, r])
+        pa, pb = ca[-1].clone(), cb[-1].clone()            # (B, P, I, N)
+        pb[:, 0] = pa[:, 0] * h + pb[:, 0]
+        pa[:, 0] = 0.0
+        d = 1
+        while d < P:
+            qa, qb = pa[:, :-d].clone(), pb[:, :-d].clone()
+            pb[:, d:] = pa[:, d:] * qb + pb[:, d:]
+            if 2 * d < P:
+                pa[:, d:] = pa[:, d:] * qa
+            d *= 2
+        hin = torch.cat([h[:, None], pb[:, :-1]], dim=1)   # (B, P, I, N)
+        h = pb[:, -1]
+        hs = torch.stack(ca, 2) * hin[:, :, None] + torch.stack(cb, 2)
+        ys.append((hs * cm[:, k, :, :, None, :]).sum(-1).reshape(B, L, I))
+    return torch.cat(ys, 1)[:, :S], h
+
+
+@pytest.mark.parametrize("B,S,I,N", [(1, 5, 40, 16), (2, 64, 33, 16),
+                                     (1, 129, 48, 4), (2, 200, 36, 16)])
+def test_segmented_scan_matches_reference(B, S, I, N):
+    """The kernel's combine order on ragged S (shorter than a run, one
+    chunk, a step past two chunks, off the chunk) and I off the 32-channel
+    block, from a random state, against the JAX package's sequential
+    oracle at the reference kernel's 2e-5."""
+    rng = np.random.default_rng(B * 1000 + S)
+    f32 = np.float32
+    arrays = [np.log1p(np.exp(rng.standard_normal((B, S, I)))).astype(f32),
+              (-np.exp(rng.standard_normal((I, N)))).astype(f32),
+              rng.standard_normal((B, S, N)).astype(f32),
+              rng.standard_normal((B, S, N)).astype(f32),
+              rng.standard_normal((B, S, I)).astype(f32),
+              rng.standard_normal((B, I, N)).astype(f32)]
+    yr, hr = jax_scan_ref(*(jnp.asarray(v) for v in arrays))
+    y, hT = _segmented_scan(*(torch.from_numpy(v) for v in arrays))
+    np.testing.assert_allclose(y.numpy(), np.asarray(yr), rtol=2e-5,
+                               atol=2e-5)
+    np.testing.assert_allclose(hT.numpy(), np.asarray(hr), rtol=2e-5,
+                               atol=2e-5)

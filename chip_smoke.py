@@ -26,7 +26,10 @@ runs, one line per result:
    seed, the AgentConfig defaults) with samplers "ddpm" and "ddim:5" on the
    cells paper-8srv and paper-12srv (K = 32 tasks, B = 256 envs, a whole
    episode), with the kernels' launch counts, reset just before each run,
-   and a short profiled rollout: device busy time and idle share;
+   and a short profiled rollout: device busy time and idle share. Every
+   rollout of the script (phases 4, 5, 8-10, 15-17) replays its
+   decision as CUDA graphs (`actors/program.py`), whose captures add
+   their launches to the counts at every replay;
 5. kernel path against plain path inside the loop: fifo closed loop,
    EAT teacher-forced, EAT closed loop on aggregate metrics;
 6. a timing row per kernel: device and call time, plain-version time,
@@ -81,6 +84,25 @@ runs, one line per result:
    prefill layer an ssm_scan launch and the attention layer a
    flash_attention launch; the logits and tokens against the plain scan
    and attention on two requests of different prompt length;
+15. the decision graph (`actors/program.py`): on paper-8srv and
+   paper-12srv at B = 256, with fifo, uniform, ddpm, ddim:5 and distilled,
+   a whole episode graphed (capture ms, launches per decision) and
+   graphed against eager (`graph=False`) collecting a whole episode,
+   equal in every tensor; 10 alternating pairs of 256-decision runs each
+   way (wall ms per decision); a profile of each way (device busy, idle
+   share); the uniform run's actions replayed by `sequence_policy`
+   graphed and eager (exact); a ddpm rollout on new weights, which the
+   graph reads; `ActorProgram.act` at B = 1 against the eager policy;
+16. the paper's comparison on `paper_scenarios()` (4, 8 and 12 servers):
+   Random, FIFO, Greedy and EAT (phase 8's actor on paper-8srv, seeded
+   random actors on the other two) on 256 traces per cell, Genetic and
+   Harmony at their defaults on one trace per cell; mean response,
+   quality, reload rate and return, ms per decision; Greedy on the card
+   against Greedy on the CPU, closed loop on 8 traces;
+17. PPO on paper-8srv (`train_ppo`, 3 rounds of 16 envs) with ms per
+   collection decision and per `ppo_update`, one `ppo_update` on the card
+   against the CPU; `sac.train` one round with `demo_episodes` and one
+   with `curriculum=training_curriculum`;
 then the phase 6 rows, a `kernels` JSON line after the card's
 `nvidia-smi` line, and
 `{"ok": true, "device": {...}}` as the last line.
@@ -405,13 +427,10 @@ def nbytes(*tensors):
 
 
 def _wrappers():
-    from repro_torch.kernels.denoiser import kernel as DK
-    from repro_torch.kernels.env_step import kernel as EK
-    from repro_torch.kernels.flash_attention import kernel as FK
-    from repro_torch.kernels.ssm_scan import kernel as SK
-    return {"env_step": EK.env_step, "denoiser_chain": DK.denoiser_chain,
-            "denoiser_step": DK.denoiser_step,
-            "flash_attention": FK.flash_attention, "ssm_scan": SK.ssm_scan}
+    """{name: wrapper} of the five kernels, whose `launches` counters the
+    decision graphs keep true through replays."""
+    from repro_torch.actors.program import kernel_wrappers
+    return {w.__name__: w for w in kernel_wrappers()}
 
 
 def reset_counts():
@@ -1093,6 +1112,413 @@ def phase_distilled(dev, card, params8, ddpm_ms, B=256, cells=CELLS):
     return launches
 
 
+# ------------------------------------------------- phases 15-17 (item 12, 4, 6)
+GRAPH_SAMPLERS = ("fifo", "uniform", "ddpm", "ddim:5", "distilled")
+
+
+def _rollouts_equal(a, b):
+    """Every tensor of two rollout results equal (state, metrics, and the
+    transitions when both collected)."""
+    pairs = [(getattr(a.final_state, f), getattr(b.final_state, f))
+             for f in a.final_state._fields]
+    pairs += [(a.metrics[k], b.metrics[k]) for k in a.metrics]
+    if a.transitions is not None:
+        pairs += [(getattr(a.transitions, f), getattr(b.transitions, f))
+                  for f in a.transitions._fields[:-1]]
+        pairs += [(v, b.transitions.extras[k])
+                  for k, v in a.transitions.extras.items()]
+    return all(torch.equal(x, y) for x, y in pairs)
+
+
+def _graph_policy(dev, ecfg, acfg, sampler, actor):
+    from repro_torch.actors.policies import actor_policy
+    from repro_torch.core import rollout as RO
+    if sampler == "fifo":
+        return RO.fifo_policy(ecfg), {}
+    if sampler == "uniform":
+        return RO.uniform_policy(ecfg), {}
+    return actor_policy(ecfg, acfg, sampler=sampler, device=dev), actor
+
+
+def phase_graph(dev, card, params8, B=256, cells=CELLS,
+                samplers=GRAPH_SAMPLERS, pairs=10, pair_steps=256,
+                profile_steps=64, act_calls=50):
+    """The decision graph (ROADMAP Queue 1 item 12): per cell and sampler,
+    a whole episode graphed (the default; its first run builds the loop and
+    captures the two graphs: capture ms) with every launch count set to 0
+    just before it, then graphed against eager (`graph=False`, here only to
+    measure it) collecting a whole episode: equal in every tensor (exact
+    for fifo, uniform and sequence; for the actor samplers a difference is
+    reported and held to phase 5's 5 % on the aggregate metrics); `pairs`
+    alternating pairs of `pair_steps`-decision runs for wall ms per
+    decision each way; and a profile of each way (device busy ms, idle
+    share, events per decision). Per cell: the uniform run's actions
+    replayed by `sequence_policy` graphed and eager (exact), a ddpm
+    rollout on new weights (the second rollout reads them); on paper-8srv
+    `ActorProgram.act` at B = 1 against the policy's eager call. Returns
+    launches summed over the counted runs."""
+    from repro_torch.actors.policies import actor_policy, init_student
+    from repro_torch.actors.program import actor_program
+    from repro_torch.core import agent as AG
+    from repro_torch.core import env as EV
+    from repro_torch.core import rollout as RO
+    acfg = AG.AgentConfig()
+    launches = {}
+    for name, E, rate in cells:
+        ecfg, traces = cell_setup(dev, name, E, rate, B)
+        if name == "paper-8srv":
+            actor = params8
+        else:
+            g = torch.Generator(device=dev).manual_seed(1)
+            actor = AG.init_actor(ecfg, acfg, generator=g, device=dev)
+            actor["student"] = init_student(ecfg, acfg, generator=g,
+                                            device=dev)
+        collected = {}
+        for sampler in samplers:
+            pol, params = _graph_policy(dev, ecfg, acfg, sampler, actor)
+            prog = actor_program(ecfg, pol)
+
+            def run(graph, steps=ecfg.max_steps, collect=False, p=params):
+                return RO.batch_rollout(
+                    ecfg, traces, pol, p, num_steps=steps, collect=collect,
+                    generator=torch.Generator(device=dev).manual_seed(2),
+                    device=dev, graph=graph)
+            cap0, n0 = prog.capture_seconds, prog.captures
+            sync(dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            first = run(True)
+            sync(dev)
+            first_s = time.perf_counter() - t0
+            counts = read_counts()
+            T = ecfg.max_steps
+            assert counts["env_step"] == T, counts
+            if sampler in ("ddpm", "ddim:5"):
+                assert counts["denoiser_chain"] == T, counts
+            if sampler == "distilled":
+                assert counts["denoiser_step"] == T, counts
+            add_counts(launches, counts)
+            # 2 on a loop's first run (0 where an earlier phase captured it)
+            captured = prog.captures - n0
+            assert captured in ((0, 2) if dev.type == "cuda" else (0,)), \
+                captured
+            g = run(True, collect=True)
+            e = run(False, collect=True)
+            exact = _rollouts_equal(g, e)
+            diff = {}
+            if not exact:
+                assert sampler not in ("fifo", "uniform"), \
+                    f"{name} {sampler}: graphed != eager"
+                for k in ("avg_response", "avg_quality", "num_scheduled",
+                          "episode_return"):
+                    a = g.metrics[k].double().mean().item()
+                    b = e.metrics[k].double().mean().item()
+                    diff[k] = [a, b]
+                    assert abs(a - b) <= 0.05 * max(abs(b), 1e-6), (name, k)
+                diff["envs_same_final_state"] = int(torch.stack([
+                    (getattr(g.final_state, f) == getattr(e.final_state, f)
+                     ).reshape(B, -1).all(1) for f in EV.EnvState._fields]
+                ).all(0).sum())
+            collected[sampler] = g
+            graphed, eager = [], []
+            for i in range(pairs):
+                for graph in ((True, False) if i % 2 == 0 else (False, True)):
+                    sync(dev)
+                    t0 = time.perf_counter()
+                    run(graph, steps=pair_steps)
+                    sync(dev)
+                    ms = 1e3 * (time.perf_counter() - t0) / pair_steps
+                    (graphed if graph else eager).append(ms)
+            prof = {way: profile_device(
+                dev, lambda: run(way == "graphed", steps=profile_steps),
+                profile_steps, "decision")
+                for way in ("graphed", "eager")}
+            row = {"card": card, "cell": name, "sampler": sampler, "B": B,
+                   "decisions": T, "first_run_ms_per_decision":
+                       1e3 * first_s / T,
+                   "capture_ms": 1e3 * (prog.capture_seconds - cap0),
+                   "graphs_captured": captured,
+                   "launches_per_decision": {k: v / T for k, v in
+                                             counts.items() if v},
+                   "graphed_equals_eager": exact, "difference": diff,
+                   "pair_steps": pair_steps,
+                   "graphed_ms_per_decision": graphed,
+                   "eager_ms_per_decision": eager,
+                   "graphed_median": float(np.median(graphed)),
+                   "eager_median": float(np.median(eager)),
+                   "pairs_graphed_faster": sum(a < b for a, b in
+                                               zip(graphed, eager)),
+                   # the profiler's own host work inflates its wall time:
+                   # the idle share against the pairs' median wall too
+                   "idle_share_at_median_wall": {
+                       "graphed": 1.0 - prof["graphed"][
+                           "device_busy_ms_per_decision"] / np.median(graphed),
+                       "eager": 1.0 - prof["eager"][
+                           "device_busy_ms_per_decision"] / np.median(eager)},
+                   "profile": prof,
+                   "metrics": {k: float(v.float().mean())
+                               for k, v in first.metrics.items()}}
+            log("phase 15 decision graph " + json.dumps(row))
+        # the uniform run's actions replayed graphed and eager: exact
+        seq = {"seq": collected["uniform"].transitions.action}
+        pol = RO.sequence_policy(ecfg)
+        runs = [RO.batch_rollout(ecfg, traces, pol, seq, collect=True,
+                                 device=dev, graph=graph)
+                for graph in (True, False)]
+        assert _rollouts_equal(*runs), f"{name} sequence: graphed != eager"
+        assert torch.equal(runs[0].final_state.task_status,
+                           collected["uniform"].final_state.task_status)
+        # new weights between two rollouts: the second reads them
+        pol = actor_policy(ecfg, acfg, sampler="ddpm", device=dev)
+        fresh = AG.init_actor(
+            ecfg, acfg, generator=torch.Generator(device=dev).manual_seed(3),
+            device=dev)
+        kw = dict(collect=True, device=dev,
+                  generator=torch.Generator(device=dev).manual_seed(2))
+        new_g = RO.batch_rollout(ecfg, traces, pol, fresh, **kw)
+        kw["generator"] = torch.Generator(device=dev).manual_seed(2)
+        new_e = RO.batch_rollout(ecfg, traces, pol, fresh, graph=False, **kw)
+        same_new = _rollouts_equal(new_g, new_e)
+        moved = not torch.equal(new_g.transitions.action,
+                                collected["ddpm"].transitions.action)
+        assert moved, f"{name}: the rollout on new weights did not move"
+        log(f"phase 15 {name}: sequence replay graphed == eager (exact); "
+            f"ddpm on new weights: graphed == eager {same_new}, actions "
+            f"differ from the old weights' {moved}")
+        if name == "paper-8srv":
+            log("phase 15 act " + json.dumps(
+                phase_act(dev, card, ecfg, acfg, traces, actor, act_calls,
+                          pairs)))
+    return launches
+
+
+def phase_act(dev, card, ecfg, acfg, traces, actor, calls, pairs):
+    """`ActorProgram.act` at B = 1 (the serving seam, ddpm) against the
+    policy's eager call: equal outputs on the same draws, then ms per
+    decision with the action brought to the host, in alternating pairs."""
+    from repro_torch.actors.policies import actor_policy
+    from repro_torch.actors.program import actor_program
+    from repro_torch.core import env as EV
+    pol = actor_policy(ecfg, acfg, sampler="ddpm", device=dev)
+    prog = actor_program(ecfg, pol)
+    tr = {k: v[:1] for k, v in traces.items()}
+    state = EV.reset(ecfg, 1, device=dev)
+    obs = EV.observe(ecfg, tr, state)
+    g1 = torch.Generator(device=dev).manual_seed(4)
+    g2 = torch.Generator(device=dev).manual_seed(4)
+    for _ in range(3):
+        a, _ = prog.act(tr, state, obs, g1, actor)
+        b, _ = pol(actor, g2, tr, state, obs)
+        assert torch.equal(a, b), "act != policy"
+    graphed, eager = [], []
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for i in range(pairs):
+        for graph in ((True, False) if i % 2 == 0 else (False, True)):
+            sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                a, _ = (prog.act(tr, state, obs, gen, actor) if graph
+                        else pol(actor, gen, tr, state, obs))
+                a.cpu()
+            (graphed if graph else eager).append(
+                1e3 * (time.perf_counter() - t0) / calls)
+    return {"card": card, "cell": "paper-8srv", "sampler": "ddpm", "B": 1,
+            "calls": calls, "graphed_ms_per_call": graphed,
+            "eager_ms_per_call": eager,
+            "graphed_median": float(np.median(graphed)),
+            "eager_median": float(np.median(eager))}
+
+
+def phase_paper(dev, card, actor8, B=256, small_B=8, gcfg=None, hcfg=None):
+    """The paper's comparison (§VI, Tables IX-XI) on `paper_scenarios()`:
+    Random, FIFO, Greedy and EAT on B traces per cell through
+    `run_scenario` (each with every launch count set to 0 just before it;
+    EAT is phase 8's short-trained actor on paper-8srv and a seeded random
+    actor on the 4- and 12-server cells, whose observation widths differ),
+    then Genetic and Harmony at their defaults on the cell's first trace,
+    and Greedy on the card against Greedy on the CPU, closed loop on
+    `small_B` traces: equal actions and final state. Returns launches."""
+    from repro_torch.actors.policies import actor_policy
+    from repro_torch.core import agent as AG
+    from repro_torch.core import baselines as BL
+    from repro_torch.core import rollout as RO
+    from repro_torch.core import scenarios as SC
+    gcfg = gcfg or BL.GeneticConfig()
+    hcfg = hcfg or BL.HarmonyConfig()
+    acfg = AG.AgentConfig()
+    launches, table = {}, []
+    for sc in SC.paper_scenarios():
+        ecfg = sc.ecfg
+        traces = SC.make_scenario_trace_batch(
+            sc, B, generator=torch.Generator(device=dev).manual_seed(6),
+            device=dev)
+        eat = (actor8 if sc.name == "paper-8srv" else AG.init_actor(
+            ecfg, acfg, generator=torch.Generator(device=dev).manual_seed(1),
+            device=dev))
+        for pname, pol, params in (
+                ("random", RO.uniform_policy(ecfg), {}),
+                ("fifo", RO.fifo_policy(ecfg), {}),
+                ("greedy", RO.greedy_policy(ecfg), {}),
+                ("eat", actor_policy(ecfg, acfg, sampler="ddpm", device=dev),
+                 eat)):
+            sync(dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            m = SC.run_scenario(sc, pol, torch.Generator(device=dev).manual_seed(7),
+                                params=params, traces=traces, device=dev)
+            secs = time.perf_counter() - t0
+            counts = read_counts()
+            assert counts["env_step"] == ecfg.max_steps, counts
+            add_counts(launches, counts)
+            table.append(_paper_row(card, sc.name, pname, B, m,
+                                    1e3 * secs / ecfg.max_steps, counts))
+        trace0 = {k: v[0] for k, v in traces.items()}
+        for pname, fn, cfg in (("genetic", BL.genetic_schedule, gcfg),
+                               ("harmony", BL.harmony_schedule, hcfg)):
+            sync(dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            best, fit = fn(ecfg, trace0, cfg,
+                           generator=torch.Generator(device=dev).manual_seed(8),
+                           device=dev)
+            res = RO.batch_rollout(ecfg, {k: v[:1] for k, v in traces.items()},
+                                   RO.sequence_policy(ecfg),
+                                   {"seq": best[None]}, num_steps=cfg.seq_len,
+                                   device=dev)
+            sync(dev)
+            secs = time.perf_counter() - t0
+            counts = read_counts()
+            add_counts(launches, counts)
+            m = {k: v.cpu().numpy() for k, v in res.metrics.items()}
+            m.update({f"mean_{k}": float(v.mean()) for k, v in m.items()})
+            assert abs(m["mean_episode_return"] - float(fit)) <= 1e-5 * max(
+                1.0, abs(float(fit))), (pname, m["mean_episode_return"], fit)
+            row = _paper_row(card, sc.name, pname, 1, m,
+                             1e3 * secs / max(counts["env_step"], 1), counts)
+            row["schedule_s"] = secs
+            row["config"] = dataclasses.asdict(cfg)
+            table.append(row)
+        small = {k: v[:small_B] for k, v in traces.items()}
+        kw = dict(collect=True)
+        card_g = RO.batch_rollout(ecfg, small, RO.greedy_policy(ecfg), {},
+                                  device=dev, **kw)
+        cpu_g = RO.batch_rollout(ecfg, small, RO.greedy_policy(ecfg), {},
+                                 device="cpu", **kw)
+        assert torch.equal(card_g.transitions.action.cpu(),
+                           cpu_g.transitions.action), f"{sc.name} greedy actions"
+        _same_state(type(cpu_g.final_state)(
+            *(x.cpu() for x in card_g.final_state)), cpu_g.final_state,
+                    f"{sc.name} greedy card vs cpu")
+        log(f"phase 16 {sc.name}: greedy on the card == greedy on the CPU "
+            f"(closed loop, {small_B} traces, {ecfg.max_steps} decisions: "
+            f"actions and final state)")
+    for row in table:
+        log("phase 16 paper " + json.dumps(row))
+    return launches, table
+
+
+def _paper_row(card, cell, policy, B, m, ms, counts):
+    return {"card": card, "cell": cell, "policy": policy, "B": B,
+            "mean_avg_response": m["mean_avg_response"],
+            "mean_avg_quality": m["mean_avg_quality"],
+            "mean_reload_rate": m["mean_reload_rate"],
+            "mean_episode_return": m["mean_episode_return"],
+            "mean_num_scheduled": m["mean_num_scheduled"],
+            "ms_per_decision": ms,
+            "launches": {k: v for k, v in counts.items() if v}}
+
+
+def phase_ppo(dev, card, num_envs=16, rounds=3, upd_iters=10,
+              warmup_steps=256):
+    """PPO (ROADMAP Queue 1 item 6) on paper-8srv: `train_ppo` for `rounds`
+    rounds of `num_envs` envs (a depth cut) with every launch count set to
+    0 just before it; ms per collection decision and per `ppo_update`
+    (CUDA events) on a minibatch of the pooled data; one `ppo_update` on
+    the card against the CPU from the same state and batch within
+    LOSS_RTOL. Then the SAC remainder: `sac.train` one round with
+    `demo_episodes` and one with `curriculum=training_curriculum`. Returns
+    launches."""
+    from repro_torch.common.device import to_device
+    from repro_torch.core import agent as AG
+    from repro_torch.core import ppo as PPO
+    from repro_torch.core import rollout as RO
+    from repro_torch.core import sac as SAC
+    from repro_torch.core import scenarios as SC
+    ecfg = cell_env(8)
+    pcfg = PPO.PPOConfig()
+    trace_fn = cell_traces(dev, 8, 0.1)
+    launches = {}
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    st, hist = PPO.train_ppo(ecfg, pcfg, trace_fn, num_envs * rounds,
+                             num_envs=num_envs, log_every=0, device=dev)
+    sync(dev)
+    train_s = time.perf_counter() - t0
+    counts = read_counts()
+    assert counts["env_step"] == rounds * ecfg.max_steps, counts
+    add_counts(launches, counts)
+    updates = sum({h["round"]: h["updates"] for h in hist}.values())
+    assert updates > 0 and int(st.step) == updates, (updates, int(st.step))
+    gen = torch.Generator(device=dev).manual_seed(9)
+    traces = trace_fn(gen, num_envs)
+    sync(dev)
+    t0 = time.perf_counter()
+    res = RO.batch_rollout(ecfg, traces, PPO.ppo_policy(ecfg), st.params,
+                           generator=gen, collect=True, device=dev)
+    sync(dev)
+    collect_ms = 1e3 * (time.perf_counter() - t0) / ecfg.max_steps
+    data = PPO.pool_gae(res.transitions, pcfg)
+    mb = max(1, len(data["adv"]) // pcfg.minibatches)
+    idx = np.random.default_rng(0).permutation(len(data["adv"]))[:mb]
+    batch = {k: torch.from_numpy(v[idx]).to(dev) for k, v in data.items()}
+    state = {"st": st}
+
+    def one_update():
+        state["st"], _ = PPO.ppo_update(state["st"], batch, ecfg=ecfg,
+                                        pcfg=pcfg)
+    upd_ms = time_ms(one_update, upd_iters, warmup=2)
+    cpu = torch.device("cpu")
+    _, m_dev = PPO.ppo_update(st, batch, ecfg=ecfg, pcfg=pcfg)
+    _, m_cpu = PPO.ppo_update(to_device(st, cpu), to_device(batch, cpu),
+                              ecfg=ecfg, pcfg=pcfg)
+    pairs = {}
+    for k in m_cpu:
+        a, b = float(m_dev[k]), float(m_cpu[k])
+        pairs[k] = [a, b, abs(a - b) / max(abs(b), 1e-12)]
+        assert abs(a - b) <= LOSS_RTOL * abs(b) + 1e-7, (k, a, b)
+    log("phase 17 ppo " + json.dumps({
+        "card": card, "cell": "paper-8srv", "num_envs": num_envs,
+        "rounds": rounds, "train_s": train_s, "updates": updates,
+        "launches": counts, "ms_per_collection_decision": collect_ms,
+        "ms_per_ppo_update": upd_ms, "update_batch": mb,
+        "card_vs_cpu": pairs,
+        "last_round_return": float(np.mean([h["episode_return"] for h in
+                                            hist[-num_envs:]]))}))
+    acfg = AG.AgentConfig()
+    scfg = SAC.SACConfig(batch_size=512, warmup_steps=warmup_steps,
+                         update_every=64)
+    for what, kw in (("demo_episodes", {"demo_episodes": num_envs}),
+                     ("curriculum", {"curriculum":
+                                     SC.training_curriculum(ecfg)})):
+        sync(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        ts, hist = SAC.train(ecfg, acfg, scfg, trace_fn, num_envs,
+                             num_envs=num_envs, log_every=0, device=dev, **kw)
+        sync(dev)
+        counts = read_counts()
+        add_counts(launches, counts)
+        ups = hist[0]["updates"]
+        assert ups > 0 and int(ts.step) == ups, (what, ups)
+        assert np.isfinite(hist[0]["critic_loss"]) and counts["env_step"] > 0
+        log("phase 17 sac " + json.dumps({
+            "card": card, "with": what, "round_s": time.perf_counter() - t0,
+            "warmup_round": hist[0]["warmup"], "updates": ups,
+            "critic_loss": hist[0]["critic_loss"], "launches": counts}))
+    return launches
+
+
 def phase_flash(dev, cases=FA_CASES):
     """flash_attention kernel vs plain version (`impl="ref"`) through the
     (B, S, H, hd) entry point, fp32 and bf16; returns (max error over the
@@ -1468,7 +1894,8 @@ def measure(env_timing, chain_timing, step_timing, flash_timing, ssm_timing,
     operations are its S·I·N exponentials at the SFU rate and its 6 fp32
     operations per state and step (`bound_terms_ms` gives each term); no
     single PyTorch call computes it. `launches` is each kernel's count
-    summed over the main-path runs (phases 4, 8, 9, 10, 12 and 14),
+    summed over the main-path runs (phases 4, 8, 9, 10, 12, 14 and
+    15-17, graph replays included),
     `launches_per_request` a serving kernel's per served request in phases
     12 and 14. The redesigned kernels (all five) also carry
     `event_device_ms` (CUDA events with the host ahead of the card,
@@ -1728,6 +2155,15 @@ def main():
     add_counts(launches, phase_distilled(dev, card, params8, ddpm_ms))
     phase_profile(dev, card, sampler="distilled", params=params8, phase=10)
     log(f"phases 8-10 took {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    add_counts(launches, phase_graph(dev, card, params8))
+    log(f"phase 15 took {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    add_counts(launches, phase_paper(dev, card, ts.actor)[0])
+    log(f"phase 16 took {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    add_counts(launches, phase_ppo(dev, card))
+    log(f"phase 17 took {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
     errs["flash_attention"], flash_timing = phase_flash(dev)
     per_request = {}

@@ -11,6 +11,8 @@ MLP mean. The sigma head, exploration noise and clip are
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.actors import samplers as SMP
@@ -32,8 +34,19 @@ def actor_policy(ecfg: EnvConfig, acfg: AG.AgentConfig,
     and the exploration eps from the rollout's generator. `impl="ref"` runs
     the plain chain (or the plain student) on any device. "distilled" reads
     the student head from `params["student"]` (`init_student`,
-    `training.distill.distill_actor`)."""
-    dev = resolve_device(device)
+    `training.distill.distill_actor`).
+
+    Cached on its arguments (the sampler normalised, the device resolved),
+    as the reference's factory is: the same arguments give the same
+    callable, so its `actors.program.ActorProgram` and graphs are reused."""
+    return _actor_policy(ecfg, acfg, bool(deterministic),
+                         SMP.normalize_sampler(sampler),
+                         resolve_device(device), impl)
+
+
+@functools.lru_cache(maxsize=None)
+def _actor_policy(ecfg: EnvConfig, acfg: AG.AgentConfig, deterministic: bool,
+                  sampler: str, dev: torch.device, impl: str):
     kind, K = SMP.parse_sampler(sampler)
     if kind != "ddpm" and acfg.policy != "diffusion":
         raise ValueError(
@@ -64,7 +77,7 @@ def actor_policy(ecfg: EnvConfig, acfg: AG.AgentConfig,
                                 deterministic=deterministic)
         return AG.to_env_action(a), {"agent_action": a}
 
-    policy.sampler = SMP.normalize_sampler(sampler)
+    policy.sampler = sampler
     return policy
 
 

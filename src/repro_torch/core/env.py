@@ -17,6 +17,7 @@ the reward's `t_avg`, so the reward is held to a tolerance.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, NamedTuple, Tuple
 
@@ -321,19 +322,29 @@ def reset_view(cfg: EnvConfig, trace: Dict, state: EnvState):
 
 
 # ----------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def _tables(cfg: EnvConfig, device: torch.device):
+    """(step time, init time by log2 c, per-model scale) on `device`,
+    copied there once: a decision computed inside a CUDA graph capture (the
+    greedy baseline's) may not copy from the host."""
+    return (TM.STEP_TIME.to(device), TM.INIT_TIME.to(device),
+            cfg.scales(device))
+
+
 def decision_statics(cfg: EnvConfig, trace: Dict) -> Dict[str, torch.Tensor]:
     """Per-task constants of the decision step, hoisted out of the rollout
     loop; all (B, K), plus the fault columns when the trace has them."""
     c = trace["c"]
     li = TM._log2i(c)
+    step_time, init_time, scales = _tables(cfg, c.device)
     out = {
         "arr_time": trace["arr_time"],
         "c": c,
         "model": trace["model"],
         "noise": trace["noise"],
-        "step_base": TM.STEP_TIME.to(c.device)[li],   # s / inference step
-        "init_base": TM.INIT_TIME.to(c.device)[li],   # model (re)load s
-        "scale": cfg.scales(c.device)[trace["model"].to(torch.int64)],
+        "step_base": step_time[li],                   # s / inference step
+        "init_base": init_time[li],                   # model (re)load s
+        "scale": scales[trace["model"].to(torch.int64)],
     }
     if has_faults(trace):
         for col in FAULT_COLS:

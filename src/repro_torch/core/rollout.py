@@ -5,7 +5,11 @@ Each decision does three things for all B envs at once: the policy acts on
 the observation, one fused env-step op (`kernels/env_step`, one kernel
 launch on the card, through an `EnvStepPlan` built once per rollout)
 advances the envs and returns the next queue and observation, and finished
-envs are frozen with `where(done, old, new)`.
+envs are frozen with `where(done, old, new)`. The policy's
+`actors.program.ActorProgram` owns that decision: on the card it is
+captured once as a CUDA graph and replayed, as the reference compiles its
+scan body into one program. `rollout_episode` and `fused=False` are the
+unfused engine on the compositional `env.step_with_queue`.
 
 Policy protocol
 ---------------
@@ -18,6 +22,7 @@ draws or actions the caller supplies instead.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
@@ -27,6 +32,7 @@ from repro_torch.core import env as EV
 from repro_torch.kernels.env_step import ops as EK
 
 Policy = Callable[..., Any]
+
 
 class Transitions(NamedTuple):
     """Stacked per-step records, (B, T, ...)."""
@@ -51,40 +57,21 @@ def _freeze(done, new, old):
                                    o, n) for n, o in zip(new, old)))
 
 
-def batch_rollout(ecfg: EV.EnvConfig, traces: Dict, policy: Policy, params,
-                  *, generator: Optional[torch.Generator] = None,
-                  num_steps: Optional[int] = None, collect: bool = False,
-                  init_state: Optional[EV.EnvState] = None, device=None,
-                  impl: str = "auto") -> RolloutResult:
-    """B episodes stepped together.
-
-    `traces`: dict of (B, K) tensors (`workload.make_trace_batch`);
-    `params` is shared by every env; `init_state`, when given, carries the
-    (B,) axis and each env resumes from it. Traces, params and state are
-    moved to `device` (None: the CUDA device; raises without one). `impl`
-    picks the env step: "auto" (the kernel on the card, the plain version
-    on the CPU) or "ref" (the plain version anywhere).
-
-    The loop runs `num_steps` (default `max_steps`) decisions; an env that
-    is done stays frozen, as in the reference."""
-    dev = resolve_device(device)
-    traces = to_device(traces, dev)
-    params = to_device(params, dev)
+def _loop(ecfg: EV.EnvConfig, traces: Dict, policy: Policy, params, gen,
+          T: int, collect: bool, state: EV.EnvState, step) -> RolloutResult:
+    """The eager decision loop: T decisions of `policy` and
+    `step(state, action, queue) -> (state', queue', obs', reward, done)`,
+    finished envs frozen."""
     B = traces["arr_time"].shape[0]
-    T = int(num_steps) if num_steps else ecfg.max_steps
-    gen = torch.Generator(device=dev) if generator is None else generator
-    state = (EV.reset(ecfg, B, device=dev) if init_state is None
-             else to_device(init_state, dev))
-    statics = EV.decision_statics(ecfg, traces)
+    dev = traces["arr_time"].device
     q, obs = EV.reset_view(ecfg, traces, state)
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
     total = torch.zeros((B,), dtype=torch.float32, device=dev)
     length = torch.zeros((B,), dtype=torch.int32, device=dev)
     steps = []
-    env_step = EK.env_stepper(ecfg, statics, B, dev, impl=impl)
     for _ in range(T):
         action, extras = policy(params, gen, traces, state, obs)
-        nstate, nq, nobs, r, d = env_step(state, action, q)
+        nstate, nq, nobs, r, d = step(state, action, q)
         nstate = _freeze(done, nstate, state)
         nq = _freeze(done, nq, q)
         nobs = torch.where(done[:, None, None], obs, nobs)
@@ -111,8 +98,88 @@ def batch_rollout(ecfg: EV.EnvConfig, traces: Dict, policy: Policy, params,
     return RolloutResult(metrics=metrics, final_state=state, transitions=traj)
 
 
+def batch_rollout(ecfg: EV.EnvConfig, traces: Dict, policy: Policy, params,
+                  *, generator: Optional[torch.Generator] = None,
+                  num_steps: Optional[int] = None, collect: bool = False,
+                  init_state: Optional[EV.EnvState] = None, device=None,
+                  impl: str = "auto", fused: bool = True,
+                  graph: bool = True) -> RolloutResult:
+    """B episodes stepped together.
+
+    `traces`: dict of (B, K) tensors (`workload.make_trace_batch`);
+    `params` is shared by every env; `init_state`, when given, carries the
+    (B,) axis and each env resumes from it. Traces, params and state are
+    moved to `device` (None: the CUDA device; raises without one). `impl`
+    picks the env step: "auto" (the kernel on the card, the plain version
+    on the CPU) or "ref" (the plain version anywhere).
+
+    The fused engine (the default) runs the decision of the policy's
+    `actors.program.ActorProgram`: its body reads and writes two fixed
+    sets of buffers in turn, and on the card every decision after the
+    first replays a CUDA graph of it; on the CPU the same body runs
+    eagerly. `graph=False` runs the eager loop instead, on the card too:
+    it exists to measure the graph against it, and no path of the package
+    passes it. `fused=False` is the unfused engine on the compositional
+    `env.step_with_queue` (`impl` and `graph` do not apply); all three
+    give equal results on the same inputs.
+
+    The loop runs `num_steps` (default `max_steps`) decisions; an env that
+    is done stays frozen, as in the reference."""
+    dev = resolve_device(device)
+    traces = to_device(traces, dev)
+    params = to_device(params, dev)
+    B = traces["arr_time"].shape[0]
+    T = int(num_steps) if num_steps else ecfg.max_steps
+    gen = torch.Generator(device=dev) if generator is None else generator
+    state = (EV.reset(ecfg, B, device=dev) if init_state is None
+             else to_device(init_state, dev))
+    if not fused:
+        def step(st, action, q):
+            return EV.step_with_queue(ecfg, traces, st, q, action)[:5]
+        return _loop(ecfg, traces, policy, params, gen, T, collect, state,
+                     step)
+    if graph:
+        from repro_torch.actors.program import actor_program
+        return actor_program(ecfg, policy).rollout(
+            traces, params, gen, state, num_steps=T, collect=collect,
+            impl=impl)
+    statics = EV.decision_statics(ecfg, traces)
+    return _loop(ecfg, traces, policy, params, gen, T, collect, state,
+                 EK.env_stepper(ecfg, statics, B, dev, impl=impl))
+
+
+def rollout_episode(ecfg: EV.EnvConfig, trace: Dict, policy: Policy, params,
+                    *, generator: Optional[torch.Generator] = None,
+                    num_steps: Optional[int] = None, collect: bool = False,
+                    init_state: Optional[EV.EnvState] = None,
+                    device=None) -> RolloutResult:
+    """One episode on one trace (a dict of (K,) tensors): the unfused
+    engine on a batch of one, returned without the batch axis (metrics
+    0-d, transitions (T, ...)). `init_state` (unbatched) resumes from a
+    carried state."""
+    dev = resolve_device(device)
+    traces = {k: v[None] for k, v in to_device(trace, dev).items()}
+    st0 = (None if init_state is None else
+           EV.EnvState(*(x[None] for x in to_device(init_state, dev))))
+    res = batch_rollout(ecfg, traces, policy, params, generator=generator,
+                        num_steps=num_steps, collect=collect,
+                        init_state=st0, device=dev, fused=False)
+    tr = None
+    if collect:
+        t = res.transitions
+        tr = Transitions(*(getattr(t, f)[0] for f in Transitions._fields[:-1]),
+                         extras={k: v[0] for k, v in t.extras.items()})
+    return RolloutResult(
+        metrics={k: v[0] for k, v in res.metrics.items()},
+        final_state=EV.EnvState(*(x[0] for x in res.final_state)),
+        transitions=tr)
+
+
 # ----------------------------------------------------------------------
-# policy factories
+# policy factories, cached on their arguments as the reference's are: a
+# policy's identity keys its `actors.program.ActorProgram` (and the CUDA
+# graphs it holds), so the same arguments must give the same callable
+@functools.lru_cache(maxsize=None)
 def uniform_policy(ecfg: EV.EnvConfig) -> Policy:
     """Random baseline: uniform env-space action (paper §VI.A.3 Random).
     To replay given uniform draws, use `sequence_policy`."""
@@ -123,11 +190,23 @@ def uniform_policy(ecfg: EV.EnvConfig) -> Policy:
     return policy
 
 
+@functools.lru_cache(maxsize=None)
+def greedy_policy(ecfg: EV.EnvConfig) -> Policy:
+    """Greedy baseline: immediate quality-first candidate search
+    (`core.baselines.greedy_act`)."""
+    from repro_torch.core import baselines as BL
+
+    def policy(params, generator, traces, state, obs):
+        return BL.greedy_act(ecfg, traces, state), {}
+    return policy
+
+
+@functools.lru_cache(maxsize=None)
 def sequence_policy(ecfg: EV.EnvConfig) -> Policy:
     """Replay a given action sequence by decision index: env b at decision
     i plays `params["seq"][b, i]` ((B, T, A) in env space; clamped at the
-    end). This is how a schedule optimised offline, or a teacher's
-    collected actions, run through the rollout."""
+    end). This is how a schedule optimised offline (genetic, harmony) or a
+    teacher's collected actions run through the rollout."""
     def policy(params, generator, traces, state, obs):
         seq = params["seq"]
         idx = torch.clamp(state.steps_taken.to(torch.int64), max=seq.shape[1] - 1)
@@ -135,6 +214,7 @@ def sequence_policy(ecfg: EV.EnvConfig) -> Policy:
     return policy
 
 
+@functools.lru_cache(maxsize=None)
 def fifo_policy(ecfg: EV.EnvConfig, steps_frac: float = 0.5) -> Policy:
     """FIFO baseline: always try the earliest-arrived visible task (queue
     slot 0) at a fixed inference-step fraction; when its gang does not fit,

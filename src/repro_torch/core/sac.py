@@ -18,6 +18,7 @@ host.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
@@ -200,6 +201,7 @@ def actor_policy(ecfg: EV.EnvConfig, acfg: AG.AgentConfig,
                             sampler="ddpm", device=device)
 
 
+@functools.lru_cache(maxsize=None)
 def warmup_policy(ecfg: EV.EnvConfig):
     """Uniform agent-space exploration used until the buffer warms up."""
     def policy(params, generator, traces, state, obs):
@@ -316,6 +318,25 @@ def run_episode(ecfg: EV.EnvConfig, trace: Dict, actor_params,
     return metrics
 
 
+def seed_with_demonstrations(buffer: ReplayBuffer, ecfg: EV.EnvConfig,
+                             trace_fn: Callable, generator,
+                             episodes: int = 8, *, device=None) -> int:
+    """Fill the replay buffer with Greedy episodes (beyond the paper), so
+    the off-policy critics see high-reward, reuse-aware transitions before
+    the actor produces them; the actor is never behaviour-cloned. The
+    `episodes` traces come from `trace_fn(generator, episodes)` and run
+    together through the fused `batch_rollout` of `rollout.greedy_policy`
+    to their ends; every valid step is stored episode by episode, with the
+    action in the agent's [-1, 1] range. Returns the transitions added."""
+    dev = resolve_device(device)
+    traces = trace_fn(generator, episodes)
+    res = RO.batch_rollout(ecfg, traces, RO.greedy_policy(ecfg), {},
+                           generator=generator, collect=True, device=dev)
+    tr = res.transitions
+    tr = tr._replace(extras={"agent_action": tr.action * 2.0 - 1.0})
+    return push_transitions(buffer, tr)
+
+
 def train(ecfg: EV.EnvConfig, acfg: AG.AgentConfig, scfg: SACConfig,
           trace_fn: Callable, num_episodes: int, seed: int = 0,
           log_every: int = 10, callback=None, demo_episodes: int = 0,
@@ -333,31 +354,40 @@ def train(ecfg: EV.EnvConfig, acfg: AG.AgentConfig, scfg: SACConfig,
     reference's rows, its round, whether the round was warmup, the updates
     the round ran and their last losses.
 
-    Not ported yet, and refused rather than ignored: `curriculum` (needs
-    `core/scenarios.py`), `demo_episodes > 0` (needs
-    `core/baselines.py::greedy_act`), both ROADMAP Queue 1 item 4, and
-    `exec_spec` (the API facade, item 7)."""
-    if curriculum:
-        raise ValueError("curriculum needs core/scenarios.py, which the port "
-                         "does not have yet (ROADMAP Queue 1 item 4)")
-    if demo_episodes:
-        raise ValueError("demo_episodes > 0 needs core/baselines.py::"
-                         "greedy_act, which the port does not have yet "
-                         "(ROADMAP Queue 1 item 4)")
+    `demo_episodes > 0` seeds the buffer with Greedy episodes first
+    (`seed_with_demonstrations`, on traces from `trace_fn`). `curriculum`
+    (a list of `scenarios.Scenario` sharing `ecfg`, e.g.
+    `scenarios.training_curriculum(ecfg)`) replaces `trace_fn` for the
+    collection rounds: each round samples one cell with the host rng.
+    `exec_spec` needs the API facade (ROADMAP Queue 1 item 7) and is
+    refused rather than ignored."""
     if exec_spec is not None:
         raise ValueError("exec_spec needs the API facade, not ported yet "
                          "(ROADMAP Queue 1 item 7); pass exec_spec=None")
+    if demo_episodes and trace_fn is None:
+        raise ValueError("demo_episodes > 0 runs greedy_act demonstrations "
+                         "on traces from trace_fn, which is None")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     rng = host_rng(gen)
+    pick = None
+    if curriculum:
+        from repro_torch.core.scenarios import curriculum_picker
+        pick = curriculum_picker(ecfg, curriculum)
     ts = init_train_state(ecfg, acfg, generator=gen, device=dev)
     buffer = ReplayBuffer(scfg.buffer_capacity, ecfg.obs_shape,
                           ecfg.action_dim)
+    if demo_episodes:
+        n = seed_with_demonstrations(buffer, ecfg, trace_fn, gen,
+                                     demo_episodes, device=dev)
+        if log_every:
+            print(f"[demo] seeded buffer with {n} greedy transitions")
     history = []
     ep, rnd = 0, 0
     while ep < num_episodes:
         B = min(num_envs, num_episodes - ep)
-        traces = trace_fn(gen, B)
+        round_trace_fn = pick(rng)[1] if pick else trace_fn
+        traces = round_trace_fn(gen, B)
         warmup = buffer.size < scfg.warmup_steps
         metrics, n_new = collect_batch(ecfg, acfg, ts.actor, traces, gen,
                                        buffer, warmup=warmup, device=dev)

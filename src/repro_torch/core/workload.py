@@ -13,6 +13,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.common.device import resolve_device
@@ -43,29 +44,66 @@ def trace_from_draws(tc: TraceConfig, gaps: torch.Tensor, c: torch.Tensor,
             "noise": (tc.quality_noise * noise.to(torch.float32))}
 
 
-def make_trace_batch(tc: TraceConfig, batch: int, *, generator=None,
-                     device=None) -> Dict:
-    """Batch of traces as one dict of (B, K) tensors (for `batch_rollout`)."""
+def sample_task_attrs(tc: TraceConfig, shape, *, generator=None,
+                      device=None):
+    """(c, model, noise) tensors of `shape` from the TraceConfig marginals,
+    for tasks whose arrival times come from elsewhere (an arrival process).
+    Drawn from `generator` in that order: the patch-count category, the
+    model id, the standard normal (scaled here by `quality_noise`)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev) if generator is None else generator
-    shape = (batch, tc.num_tasks)
-    gaps = torch.empty(shape, device=dev).exponential_(generator=gen)
+    shape = tuple(shape)
+    rows, n = int(np.prod(shape[:-1])), shape[-1]
     support = torch.tensor(tc.c_support, dtype=torch.int32, device=dev)
     probs = torch.tensor(tc.c_probs, dtype=torch.float32, device=dev)
     probs = torch.where(support <= tc.max_servers, probs, 0.0)
-    ci = torch.multinomial(probs.expand(batch, -1), tc.num_tasks,
-                           replacement=True, generator=gen)
+    ci = torch.multinomial(probs.expand(rows, -1), n, replacement=True,
+                           generator=gen).reshape(shape)
     if tc.model_probs:
-        n = min(len(tc.model_probs), tc.num_models)
+        k = min(len(tc.model_probs), tc.num_models)
         mp = torch.zeros((tc.num_models,), dtype=torch.float32, device=dev)
-        mp[:n] = torch.tensor(tc.model_probs[:n], dtype=torch.float32)
-        model = torch.multinomial(mp.expand(batch, -1), tc.num_tasks,
-                                  replacement=True, generator=gen)
+        mp[:k] = torch.tensor(tc.model_probs[:k], dtype=torch.float32)
+        model = torch.multinomial(mp.expand(rows, -1), n, replacement=True,
+                                  generator=gen).reshape(shape)
     else:
         model = torch.randint(0, tc.num_models, shape, generator=gen,
                               device=dev)
     noise = torch.randn(shape, generator=gen, device=dev)
-    return trace_from_draws(tc, gaps, support[ci], model, noise)
+    return (support[ci], model.to(torch.int32),
+            tc.quality_noise * noise)
+
+
+def make_trace_from_arrivals(arr_times: torch.Tensor, tc: TraceConfig, *,
+                             generator=None, attrs=None) -> Dict:
+    """Trace dict for given absolute arrival times (..., K). The task
+    attributes are `attrs` = (c, model, noise) when given (noise already
+    scaled, as `sample_task_attrs` returns it), else drawn from
+    `generator`."""
+    if attrs is None:
+        attrs = sample_task_attrs(tc, arr_times.shape, generator=generator,
+                                  device=arr_times.device)
+    c, model, noise = attrs
+    return {"arr_time": arr_times.to(torch.float32), "c": c.to(torch.int32),
+            "model": model.to(torch.int32),
+            "noise": noise.to(torch.float32)}
+
+
+def make_trace_batch(tc: TraceConfig, batch: int, *, generator=None,
+                     device=None) -> Dict:
+    """Batch of traces as one dict of (B, K) tensors (for `batch_rollout`):
+    the unit exponential gaps, then `sample_task_attrs`."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev) if generator is None else generator
+    shape = (batch, tc.num_tasks)
+    gaps = torch.empty(shape, device=dev).exponential_(generator=gen)
+    attrs = sample_task_attrs(tc, shape, generator=gen, device=dev)
+    return make_trace_from_arrivals(torch.cumsum(gaps / tc.arrival_rate,
+                                                 dim=-1), tc, attrs=attrs)
+
+
+def stack_traces(traces) -> Dict:
+    """Stack a list of trace dicts along a new leading batch axis."""
+    return {k: torch.stack([t[k] for t in traces]) for k in traces[0]}
 
 
 def make_trace(tc: TraceConfig, *, generator=None, device=None) -> Dict:

@@ -190,8 +190,9 @@ class EnvStepPlan:
     every call, so outputs a caller keeps are never overwritten.
 
     A caller that keeps the plan keeps the statics alive (the table points
-    at them). This is also the fixed table a CUDA graph capture of the
-    decision would start from."""
+    at them). The decision's CUDA graph (`actors/program.py`) captures a
+    call: the table's entries are copied into the launch's arguments, and
+    the fresh buffers come from the capture's pool, fixed across replays."""
 
     def __init__(self, cfg: EV.EnvConfig, statics: Dict, B: int, device=None):
         dev = torch.device(device) if device is not None \

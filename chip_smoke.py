@@ -18,6 +18,9 @@ runs, one line per result:
    aligned, and E = 8, K = 40, wider than a warp, with and without
    faults), then through one `EnvStepPlan` kept over three decisions at
    B = 253, with and without faults: exact on ints, bools and the clock;
+   the fault columns at K = 32 are a `FaultTimeline`'s arrays of
+   `FaultSpec.chaos` (F = 16, the stream's layout), random at F = 4
+   elsewhere;
 3. the denoiser_chain kernel against its plain version (A = 10, H = 256;
    B in {1, 3, 16, 256, 300} x F in {12, 16, 20} x K = 10 DDPM and K = 5
    DDIM coefficients, and the distiller's K = 10 DDIM chain at N = 4096;
@@ -27,7 +30,7 @@ runs, one line per result:
    cells paper-8srv and paper-12srv (K = 32 tasks, B = 256 envs, a whole
    episode), with the kernels' launch counts, reset just before each run,
    and a short profiled rollout: device busy time and idle share. Every
-   rollout of the script (phases 4, 5, 8-10, 15-17) replays its
+   rollout of the script (phases 4, 5, 8-10, 15-18) replays its
    decision as CUDA graphs (`actors/program.py`), whose captures add
    their launches to the counts at every replay;
 5. kernel path against plain path inside the loop: fifo closed loop,
@@ -103,6 +106,18 @@ runs, one line per result:
    collection decision and per `ppo_update`, one `ppo_update` on the card
    against the CPU; `sac.train` one round with `demo_episodes` and one
    with `curriculum=training_curriculum`;
+18. the stream (`traffic/stream.py`) on paper-8srv: one window from a
+   fresh carry against `batch_rollout` (ddpm and fifo, every tensor; the
+   window's carry, stats and leftovers against the seam of the
+   rollout's final state), then 256 streams x 8 windows of 128 ddpm decisions (phase 8's actor)
+   with Poisson arrivals at 0.1 tasks/s, `FaultSpec.chaos`, forecast
+   placement every second seam and a recording tracer: the seam ledger
+   after every window, the decision graph captured in window 0 only (its
+   loop in fault mode), one env_step and one chain launch per decision;
+   ms per window, the split by span, ms per decision, the idle share of a
+   profiled window; fifo and greedy streams on the card against the CPU
+   (8 streams x 6 windows, same faults and placement); the trace under
+   the strict schema; `profile_policy` for ddpm at batch 0 and 256;
 then the phase 6 rows, a `kernels` JSON line after the card's
 `nvidia-smi` line, and
 `{"ok": true, "device": {...}}` as the last line.
@@ -300,7 +315,13 @@ def check_sass(names):
 
 
 # ----------------------------------------------------------------- inputs
-def np_traces(rng, B, K, E, num_models, faults, F=4, rate=0.2):
+def np_traces(rng, B, K, E, num_models, faults, F=4, rate=0.2,
+              timeline=None):
+    """Random traces; with `faults`, random fault arrays of F intervals, or
+    where `timeline` (a `FaultTimeline` over B streams and E servers) is
+    given, its first window's arrays at stream epochs drawn from `rng` (F
+    is then the spec's `max_down_events`; crashes that began before an
+    epoch give negative starts)."""
     support = np.array([c for c in (1, 2, 4, 8) if c <= E])
     probs = np.array([0.35, 0.35, 0.2, 0.1])[:len(support)]
     gaps = (rng.exponential(size=(B, K)) / rate).astype(np.float32)
@@ -308,7 +329,13 @@ def np_traces(rng, B, K, E, num_models, faults, F=4, rate=0.2):
           "c": rng.choice(support, (B, K), p=probs / probs.sum()).astype(np.int32),
           "model": rng.integers(0, num_models, (B, K)).astype(np.int32),
           "noise": (0.004 * rng.standard_normal((B, K))).astype(np.float32)}
-    if faults:
+    if faults and timeline is not None:
+        from repro_torch.faults import fault_horizon
+        t0 = np.sort(rng.uniform(0.0, 2000.0, B))
+        tr.update(timeline.window_arrays(
+            0, t0, fault_horizon(float(tr["arr_time"][:, -1].max()),
+                                 timeline.spec)))
+    elif faults:
         ds = rng.uniform(0.0, 80.0, (B, E, F)).astype(np.float32)
         de = (ds + rng.uniform(1.0, 30.0, (B, E, F))).astype(np.float32)
         pad = rng.random((B, E, F)) < 0.4
@@ -506,8 +533,13 @@ def phase_env_step(dev, B=256, K=32, l=8, Es=(8, 12), models=(1, 3),
     instantiation for envs wider than a warp; then through one
     `EnvStepPlan` kept across decisions at B = `plan_B` (not a multiple of
     the kernel's 2 envs per block), with and without faults; returns (max
-    float error, timing inputs at the paper-8srv main-path shape)."""
+    float error, timing inputs at the paper-8srv main-path shape). The
+    fault cases at K tasks take their arrays from a `FaultTimeline` of
+    `FaultSpec.chaos` (F = 16 intervals, the stream's layout, as phase 18
+    runs it); those of `extra` take random ones at F = 4, denser in
+    downtime."""
     from repro_torch.core import env as EV
+    from repro_torch.faults import FaultSpec, FaultTimeline
     from repro_torch.kernels.env_step import kernel as EKK
     from repro_torch.kernels.env_step import ops as EK
     worst, timing = 0.0, None
@@ -519,7 +551,10 @@ def phase_env_step(dev, B=256, K=32, l=8, Es=(8, 12), models=(1, 3),
             ms = (1.0, 0.5, 2.0)[:nm] if nm > 1 else ()
             cfg = EV.EnvConfig(num_servers=E, max_tasks=Ku, queue_window=l,
                                num_models=nm, model_scale=ms)
-            tr = to_dev(np_traces(rng, B, Ku, E, nm, faults), dev)
+            tl = FaultTimeline(FaultSpec.chaos(seed), E, B) \
+                if faults and Ku == K else None
+            tr = to_dev(np_traces(rng, B, Ku, E, nm, faults, timeline=tl),
+                        dev)
             st = EV.EnvState(**to_dev(np_states(rng, B, E, Ku, nm), dev))
             statics = EV.decision_statics(cfg, tr)
             q = EV.visible_queue(cfg, tr, st)
@@ -539,7 +574,10 @@ def phase_env_step(dev, B=256, K=32, l=8, Es=(8, 12), models=(1, 3),
         rng = np.random.default_rng(7 + faults)
         E = Es[0]
         cfg = EV.EnvConfig(num_servers=E, max_tasks=K, queue_window=l)
-        tr = to_dev(np_traces(rng, plan_B, K, E, 1, faults), dev)
+        tl = FaultTimeline(FaultSpec.chaos(7), E, plan_B) if faults \
+            else None
+        tr = to_dev(np_traces(rng, plan_B, K, E, 1, faults, timeline=tl),
+                    dev)
         st = EV.EnvState(**to_dev(np_states(rng, plan_B, E, K, 1), dev))
         statics = EV.decision_statics(cfg, tr)
         q = EV.visible_queue(cfg, tr, st)
@@ -561,7 +599,9 @@ def phase_env_step(dev, B=256, K=32, l=8, Es=(8, 12), models=(1, 3),
             _env_step_same(got, want, f"EnvStepPlan kept step {step}")
     log(f"phase 2 env_step kernel == plain: {len(shapes) * 2} cases x "
         f"{decisions} decisions at B={B} l={l} (K={K}, and (E, K) in "
-        f"{list(extra)}), NaN actions in the last, "
+        f"{list(extra)}), NaN actions in the last, fault arrays from a "
+        f"FaultTimeline of FaultSpec.chaos at F=16 for K={K} (random at F=4 "
+        f"for the extra shapes), "
         f"and one EnvStepPlan per fault mode kept over {decisions} decisions "
         f"at B={plan_B}; ints, bools and clock exact, max float err "
         f"{worst:.3g} (tol {ENV_ATOL})")
@@ -1119,9 +1159,15 @@ GRAPH_SAMPLERS = ("fifo", "uniform", "ddpm", "ddim:5", "distilled")
 def _rollouts_equal(a, b):
     """Every tensor of two rollout results equal (state, metrics, and the
     transitions when both collected)."""
-    pairs = [(getattr(a.final_state, f), getattr(b.final_state, f))
-             for f in a.final_state._fields]
-    pairs += [(a.metrics[k], b.metrics[k]) for k in a.metrics]
+    return all(torch.equal(getattr(a.final_state, f),
+                           getattr(b.final_state, f))
+               for f in a.final_state._fields) and _outputs_equal(a, b)
+
+
+def _outputs_equal(a, b):
+    """The metrics, and the transitions when both collected, of two
+    rollouts (or windows) equal in every tensor."""
+    pairs = [(a.metrics[k], b.metrics[k]) for k in a.metrics]
     if a.transitions is not None:
         pairs += [(getattr(a.transitions, f), getattr(b.transitions, f))
                   for f in a.transitions._fields[:-1]]
@@ -1519,6 +1565,267 @@ def phase_ppo(dev, card, num_envs=16, rounds=3, upd_iters=10,
     return launches
 
 
+# the stream's spans (telemetry/schema.py KNOWN_SPANS) phase 18's trace
+# must hold
+STREAM_SPANS = ("window", "build_window", "window_rollout", "window_seam",
+                "fault_requeue", "placement_decide")
+# stream stats that are float sums over K (another reduction order on the
+# card than on the CPU); every other stat is held exactly
+STREAM_FLOAT_STATS = ("sum_resp", "sum_quality", "sum_steps", "busy_time")
+
+
+def _ledger_ok(runner):
+    s = runner.result().summary
+    assert s["tasks_injected"] == (
+        s["tasks_scheduled"] + s["tasks_dropped"]
+        + s["tasks_failed_pending_retry"] + s["tasks_leftover"]), s
+    assert s["tasks_dropped"] == (s["tasks_dropped_shed"]
+                                  + s["tasks_dropped_retry_exhausted"]), s
+
+
+def _stream_source(dev, B, seed, E=8, rate=0.1):
+    """The paper's arrivals for a stream: Poisson at `rate` and the
+    TraceConfig marginals, drawn on `dev` from a seeded generator."""
+    from repro_torch.core.workload import TraceConfig
+    from repro_torch.traffic.arrivals import PoissonArrivals
+    from repro_torch.traffic.stream import ProcessTaskSource
+    return ProcessTaskSource(
+        PoissonArrivals(rate=rate),
+        TraceConfig(num_tasks=32, arrival_rate=rate, max_servers=E),
+        torch.Generator(device=dev).manual_seed(seed), num_streams=B,
+        device=dev)
+
+
+def _same_stream(a, b, stats_a, stats_b, ctx):
+    """Two runners after the same windows (`stats_*`: their windows'
+    `WindowResult.stats`): the window records and every stat exact but the
+    float sums over K (STREAM_FLOAT_STATS and the records' mean latency and
+    return: ENV_ATOL relative), the carry, the epochs, the leftovers, the
+    retry buffers and the fault and placement counters exact."""
+    for w, (x, y) in enumerate(zip(stats_a, stats_b)):
+        for k in x:
+            if k in STREAM_FLOAT_STATS:
+                err = np.abs(x[k] - y[k]).max()
+                assert err <= ENV_ATOL * max(1.0, np.abs(y[k]).max()), \
+                    (ctx, w, k, err)
+            else:
+                assert np.array_equal(x[k], y[k]), (ctx, w, k)
+    for x, y in zip(a.per_window, b.per_window):
+        for k in x:
+            if k in ("mean_latency", "episode_return_mean"):
+                assert abs(x[k] - y[k]) <= ENV_ATOL * max(1.0, abs(y[k])), \
+                    (ctx, x["window"], k, x[k], y[k])
+            else:
+                assert x[k] == y[k], (ctx, x["window"], k, x[k], y[k])
+    for f in a.carry._fields:
+        assert torch.equal(getattr(a.carry, f).cpu(),
+                           getattr(b.carry, f).cpu()), (ctx, f)
+    assert np.array_equal(a.t0, b.t0), ctx
+    for x, y in zip(a.leftovers, b.leftovers):
+        assert all(np.array_equal(x[c], y[c]) for c in x), (ctx, "leftovers")
+    for x, y in zip(a._retry, b._retry):
+        assert all(np.array_equal(x[c], y[c]) for c in x), (ctx, "retry")
+    assert a.fault_counters() == b.fault_counters(), ctx
+    assert a.placement_counters() == b.placement_counters(), ctx
+
+
+def phase_stream(dev, card, actor, B=256, windows=8, small_B=8,
+                 small_windows=6, acfg=None, profile_iters=50, seed=0):
+    """The stream (ROADMAP Queue 1 items 8-11) on paper-8srv: each window a
+    fused `batch_rollout` of T = min(4K, max_steps) = 128 decisions from
+    the carried state, with faults, placement and a recording tracer.
+
+    1. One window from a fresh carry (no faults, no placement) equals
+       `batch_rollout` on the same traces and generator state in every
+       tensor, ddpm and fifo (collected transitions included), and the
+       window's carry, stats and leftovers are `_window_seam` of the
+       rollout's final state.
+    2. The main run: B streams, `windows` windows, Poisson arrivals at the
+       paper's 0.1 tasks/s (`ProcessTaskSource`), `actor` with sampler
+       "ddpm", `FaultSpec.chaos(seed)`, `PlacementSpec("forecast",
+       interval=2)`, a `Tracer` writing build/stream_trace.json; every
+       launch count set to 0 just before it. Every window keeps the seam
+       ledger; the program's loop (with fault statics: the fault
+       instantiation of the env_step kernel) is built once and its graphs
+       captured in window 0 only; one env_step and one chain launch per
+       decision. Printed: ms per window (window 0 with its capture, the
+       median of the rest), the split by span (`span_durations`), ms per
+       decision inside `window_rollout`, and two more windows, the second
+       under torch.profiler (device busy, idle share).
+    3. Card against CPU: fifo and greedy on `small_B` streams x
+       `small_windows` windows with chaos faults and forecast placement,
+       the same draws on both (`_same_stream`).
+    4. The trace passes `validate_trace(strict_names=True)` and holds
+       STREAM_SPANS.
+    5. `profile_policy`'s decision latencies for ddpm at batch 0 and B.
+    Returns the main run's launches."""
+    from repro_torch.actors.policies import actor_policy
+    from repro_torch.actors.program import actor_program
+    from repro_torch.core import agent as AG
+    from repro_torch.core import env as EV
+    from repro_torch.core import rollout as RO
+    from repro_torch.faults import FaultSpec
+    from repro_torch.placement import PlacementSpec
+    from repro_torch.telemetry import profile as PR
+    from repro_torch.telemetry import schema as SCH
+    from repro_torch.telemetry import trace as TRC
+    from repro_torch.traffic import stream as ST
+    acfg = acfg or AG.AgentConfig()
+    ecfg = cell_env(8)
+    ddpm = actor_policy(ecfg, acfg, sampler="ddpm", device=dev)
+    T = min(4 * ecfg.max_tasks, ecfg.max_steps)
+
+    # 1. one window from a fresh carry == batch_rollout
+    traces = cell_traces(dev, 8, 0.1)(
+        torch.Generator(device=dev).manual_seed(seed + 1), B)
+    for name, pol, params in (("ddpm", ddpm, actor),
+                              ("fifo", RO.fifo_policy(ecfg), {})):
+        g1 = torch.Generator(device=dev).manual_seed(seed + 2)
+        g2 = torch.Generator(device=dev).manual_seed(seed + 2)
+        want = RO.batch_rollout(ecfg, traces, pol, params, generator=g1,
+                                num_steps=T, collect=True, device=dev)
+        runner = ST.StreamRunner(ecfg, pol, params,
+                                 ST.TraceTaskSource(traces), g2,
+                                 ST.StreamConfig(num_streams=B), device=dev)
+        got = runner.run_window(collect=True)
+        assert _outputs_equal(want, got), \
+            f"one window != batch_rollout, {name}"
+        assert torch.equal(g1.get_state(), g2.get_state()), name
+        # the window's carry, stats and leftovers: the seam of the
+        # rollout's final state
+        stats, carry, lcols, n_left = ST._window_seam(
+            ecfg, traces, want.final_state, runner._edges, runner._sla)
+        assert all(torch.equal(getattr(runner.carry, f), getattr(carry, f))
+                   for f in carry._fields), (name, "carry")
+        assert all(np.array_equal(got.stats[k], v.cpu().numpy())
+                   for k, v in stats.items()), (name, "stats")
+        n_left = n_left.cpu().numpy()
+        assert all(np.array_equal(v, lcols[c][b, :n_left[b]].cpu().numpy())
+                   for b, left in enumerate(runner.leftovers)
+                   for c, v in left.items()), (name, "leftovers")
+    log(f"phase 18 one window from a fresh carry == batch_rollout (B = {B}, "
+        f"T = {T}; ddpm and fifo; metrics, transitions and the generator; "
+        f"the window's carry, stats and leftovers == the seam of the "
+        f"rollout's final state)")
+
+    # 2. the main run
+    path = ROOT / "build" / "stream_trace.json"
+    tracer = TRC.Tracer(TRC.TraceConfig(enabled=True, path=str(path)))
+    scfg = ST.StreamConfig(num_windows=windows, num_streams=B,
+                           faults=FaultSpec.chaos(seed),
+                           placement=PlacementSpec(policy="forecast",
+                                                   interval=2))
+    runner = ST.StreamRunner(
+        ecfg, ddpm, actor, _stream_source(dev, B, seed + 3),
+        torch.Generator(device=dev).manual_seed(seed + 4), scfg,
+        tracer=tracer, device=dev)
+    prog = actor_program(ecfg, ddpm)
+    loops0 = set(prog._loops)
+    captures_before = prog.captures
+    wall_ms = []
+    sync(dev)
+    reset_counts()
+    for w in range(windows):
+        t0 = time.perf_counter()
+        runner.run_window()
+        sync(dev)
+        wall_ms.append(1e3 * (time.perf_counter() - t0))
+        _ledger_ok(runner)
+        if w == 0:
+            after0 = (prog.captures, prog.loops_built)
+            captured0 = prog.captures - captures_before
+    counts = read_counts()
+    assert (prog.captures, prog.loops_built) == after0, \
+        ("a window after the first captured or built", after0,
+         prog.captures, prog.loops_built)
+    new = [k for k in prog._loops if k not in loops0]
+    assert len(new) == 1 and EV.has_faults(prog._loops[new[0]].st), new
+    if dev.type == "cuda":
+        assert counts["env_step"] == counts["denoiser_chain"] == \
+            windows * T, counts
+    s = runner.result().summary
+    assert s["tasks_failed"] > 0 and s["tasks_scheduled"] > 0, s
+    pc = runner.placement_counters()
+    assert pc["placement_decisions"] == windows // 2, pc
+    tracer.write()
+    errors = SCH.validate_trace(str(path), strict_names=True)
+    assert not errors, errors[:5]
+    events = json.load(open(path))["traceEvents"]
+    assert set(STREAM_SPANS) <= {e["name"] for e in events}, \
+        {e["name"] for e in events}
+
+    def split(ws):
+        return {k: 1e3 * v["total_s"] / len(ws) for k, v in SCH.span_durations(
+            [e for e in events if e.get("args", {}).get("window") in ws]
+        ).items()}
+    rest = list(range(1, windows))
+    roll = sorted(1e3 * e["dur"] / 1e6 for e in events
+                  if e["name"] == "window_rollout" and e["args"]["window"] >= 1)
+    row = {"card": card, "cell": "paper-8srv", "sampler": "ddpm",
+           "streams": B, "windows": windows, "decisions_per_window": T,
+           "faults": "chaos", "placement": "forecast, interval 2",
+           "launches": {k: v for k, v in counts.items() if v},
+           "ms_per_window": wall_ms,
+           "window0_ms": wall_ms[0],
+           "median_ms_per_window_1_on": float(np.median(wall_ms[1:])),
+           "span_ms_per_window_1_on": split(rest),
+           "span_ms_window0": split([0]),
+           "ms_per_decision_in_window_rollout": float(np.median(roll)) / T,
+           "captures_in_window0": captured0, "loops_built": len(new),
+           "ledger": {k: s[k] for k in (
+               "tasks_injected", "tasks_scheduled", "tasks_dropped",
+               "tasks_failed_pending_retry", "tasks_leftover",
+               "tasks_failed", "tasks_retried")},
+           "fault_counters": runner.fault_counters(),
+           "placement": {k: v for k, v in pc.items() if k != "per_model"},
+           "latency_p50_p95": [s["latency_p50"], s["latency_p95"]]}
+    # two more windows, the second under the profiler: the idle share
+    row["profiled_window"] = profile_device(
+        dev, lambda: runner.run_window(), 1, "window")
+    _ledger_ok(runner)
+    log("phase 18 stream " + json.dumps(row))
+
+    # 3. card against CPU, fifo and greedy under faults and placement
+    cpu = torch.device("cpu")
+    for name, pol in (("fifo", RO.fifo_policy(ecfg)),
+                      ("greedy", RO.greedy_policy(ecfg))):
+        runs, stats = [], []
+        for d in (dev, cpu):
+            small = ST.StreamConfig(num_windows=small_windows,
+                                    num_streams=small_B,
+                                    faults=FaultSpec.chaos(seed),
+                                    placement=PlacementSpec(
+                                        policy="forecast", interval=2))
+            r = ST.StreamRunner(ecfg, pol, {},
+                                _stream_source(cpu, small_B, seed + 5),
+                                torch.Generator(device=d).manual_seed(0),
+                                small, device=d)
+            stats.append([r.run_window().stats
+                          for _ in range(small_windows)])
+            runs.append(r)
+        _same_stream(*runs, *stats, f"{name} card vs cpu")
+        sm = runs[0].result().summary
+        log(f"phase 18 {name} stream on the card == on the CPU "
+            f"({small_B} streams x {small_windows} windows, chaos faults, "
+            f"forecast placement): scheduled {sm['tasks_scheduled']}, "
+            f"failed {sm['tasks_failed']}, placement "
+            f"{runs[0].placement_counters()['placement_gangs_planned']} "
+            f"gangs planned")
+
+    # 5. decision latency of the ddpm actor through its act graph
+    lat = {}
+    for batch in (0, B):
+        out = PR.profile_policy(ecfg, ddpm, actor,
+                                torch.Generator(device=dev).manual_seed(6),
+                                iters=profile_iters, batch=batch, device=dev)
+        lat[f"batch {batch}"] = {k: out[k] for k in (
+            "decision_latency_p50_s", "decision_latency_p95_s",
+            "decision_latency_mean_s")}
+    log("phase 18 decision latency " + json.dumps(
+        {"card": card, "sampler": "ddpm", **lat}))
+    return counts
+
+
 def phase_flash(dev, cases=FA_CASES):
     """flash_attention kernel vs plain version (`impl="ref"`) through the
     (B, S, H, hd) entry point, fp32 and bf16; returns (max error over the
@@ -1895,7 +2202,7 @@ def measure(env_timing, chain_timing, step_timing, flash_timing, ssm_timing,
     operations per state and step (`bound_terms_ms` gives each term); no
     single PyTorch call computes it. `launches` is each kernel's count
     summed over the main-path runs (phases 4, 8, 9, 10, 12, 14 and
-    15-17, graph replays included),
+    15-18, graph replays included),
     `launches_per_request` a serving kernel's per served request in phases
     12 and 14. The redesigned kernels (all five) also carry
     `event_device_ms` (CUDA events with the host ahead of the card,
@@ -2164,6 +2471,9 @@ def main():
     t0 = time.perf_counter()
     add_counts(launches, phase_ppo(dev, card))
     log(f"phase 17 took {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    add_counts(launches, phase_stream(dev, card, ts.actor))
+    log(f"phase 18 took {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
     errs["flash_attention"], flash_timing = phase_flash(dev)
     per_request = {}

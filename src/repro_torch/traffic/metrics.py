@@ -1,6 +1,5 @@
 """Streaming QoS telemetry: O(bins) latency percentiles and run aggregates
-(port of `repro/traffic/metrics.py`; `StreamAggregator.publish` waits for
-the metrics registry, ROADMAP Queue 1 item 11).
+(port of `repro/traffic/metrics.py`).
 
 `StreamAggregator` folds per-window stats records on the host so a long run
 keeps O(bins) state instead of O(tasks) samples. Latency percentiles come
@@ -19,17 +18,17 @@ from repro_torch.telemetry.metrics import DEFAULT_EDGES, LatencyHistogram  # noq
 
 def bucketize_counts(values: torch.Tensor, mask: torch.Tensor, edges):
     """Device-side helper (tensors in, tensor out): per-bin counts of
-    values[mask].
+    values[mask] along the last axis, leading axes kept (the stream seam
+    bins its (B, K) latencies per stream).
 
-    Returns (len(edges)+1,) int32 counts: slot 0 is the underflow
+    Returns (..., len(edges)+1) int32 counts: slot 0 is the underflow
     (< edges[0]), slot i covers (edges[i-1], edges[i]], the last slot is
-    overflow."""
-    e = torch.as_tensor(np.asarray(edges), device=values.device)
+    overflow. `edges` is an array or a tensor."""
+    e = torch.as_tensor(edges, device=values.device)
     idx = torch.searchsorted(e, values.to(e.dtype))
-    counts = torch.zeros((len(edges) + 1,), dtype=torch.int32,
-                         device=values.device)
-    return counts.index_add_(0, idx.reshape(-1),
-                             mask.to(torch.int32).reshape(-1))
+    counts = torch.zeros(values.shape[:-1] + (len(edges) + 1,),
+                         dtype=torch.int32, device=values.device)
+    return counts.scatter_add_(-1, idx, mask.to(torch.int32))
 
 
 # ----------------------------------------------------------------------
@@ -126,3 +125,20 @@ class StreamAggregator:
             "q_min": self.q_min,
             "resp_sla": self.resp_sla,
         }
+
+    # -- unified metrics registry -----------------------------------------
+    def publish(self, labels: Optional[Dict[str, str]] = None,
+                registry=None) -> None:
+        """Publish this aggregator's summary (gauges ``eat_stream_<key>``)
+        and its raw latency histogram (``eat_stream_latency_seconds``
+        buckets) into the unified telemetry registry
+        (`repro_torch.telemetry.metrics`; None = the process default)."""
+        from repro_torch.telemetry import metrics as TM
+        TM.publish_summary(self.summary(), prefix="eat_stream",
+                           labels=labels, registry=registry)
+        reg = registry or TM.default_registry()
+        reg.histogram("eat_stream_latency_seconds",
+                      "scheduled-task response latency",
+                      edges=self.hist.edges).observe_counts(
+            self.hist.counts, approx_sum=self.totals["sum_resp"],
+            labels=labels)

@@ -39,6 +39,7 @@ from repro_torch.core import diffusion as DF
 from repro_torch.core import env as EV
 from repro_torch.core import rollout as RO
 from repro_torch.core.workload import TraceConfig, make_trace_batch
+from repro_torch.telemetry.trace import NULL_TRACER
 from repro_torch.training.optimizer import (adam_init, adam_update,
                                             apply_updates, value_and_grad)
 
@@ -125,15 +126,13 @@ def distill_actor(teacher_params, ecfg: EV.EnvConfig, acfg: AG.AgentConfig,
     tensors) plus the trained ``"student"``; `history` rows carry (step,
     loss), every `log_every` steps and at the last. `obs` overrides the
     self-collected observation set (any (N, 3, E+l) tensor). `tracer`
-    waits for the port of telemetry (ROADMAP Queue 1 item 11): only None
-    is accepted."""
+    (a `telemetry.trace.Tracer`; None: no spans) gets the reference's
+    "distill" span (cat "train", args steps and samples) around the
+    student's steps."""
     if acfg.policy != "diffusion":
         raise ValueError(
             f"distillation needs a diffusion teacher; variant "
             f"{acfg.variant!r} is Gaussian")
-    if tracer is not None:
-        raise ValueError("tracer needs telemetry/, which the port does not "
-                         "have yet (ROADMAP Queue 1 item 11); pass None")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev) if generator is None else generator
     teacher = to_device(teacher_params, dev)
@@ -155,15 +154,18 @@ def distill_actor(teacher_params, ecfg: EV.EnvConfig, acfg: AG.AgentConfig,
     student = init_student(ecfg, acfg, generator=gen, device=dev)
     opt = adam_init(student)
     history: List[Dict] = []
-    for s in range(dcfg.steps):
-        idx = torch.randint(0, n, (min(dcfg.batch, n),), generator=gen,
-                            device=dev)
-        student, opt, loss = _student_step(student, opt, f_s[idx], x0[idx],
-                                           x_T[idx], acfg=acfg, lr=dcfg.lr)
-        if dcfg.log_every and s % dcfg.log_every == 0:
-            row = {"step": s, "loss": float(loss)}
-            history.append(row)
-            print(f"[distill {s:4d}] loss={row['loss']:.5f}")
+    tracer = NULL_TRACER if tracer is None else tracer
+    with tracer.span("distill", cat="train", steps=dcfg.steps, samples=n):
+        for s in range(dcfg.steps):
+            idx = torch.randint(0, n, (min(dcfg.batch, n),), generator=gen,
+                                device=dev)
+            student, opt, loss = _student_step(
+                student, opt, f_s[idx], x0[idx], x_T[idx], acfg=acfg,
+                lr=dcfg.lr)
+            if dcfg.log_every and s % dcfg.log_every == 0:
+                row = {"step": s, "loss": float(loss)}
+                history.append(row)
+                print(f"[distill {s:4d}] loss={row['loss']:.5f}")
     history.append({"step": dcfg.steps - 1, "loss": float(loss)})
     out = dict(teacher_params)
     out["student"] = student

@@ -327,15 +327,38 @@ def test_distill_collects_its_own_observations():
     assert np.isfinite(hist[0]["loss"])
 
 
-def test_distill_rejects_gaussian_teacher_and_tracer(monkeypatch):
+def test_distill_rejects_gaussian_teacher_and_tracer(monkeypatch, tmp_path):
+    """A Gaussian teacher is refused. A recording tracer (accepted since the
+    port has telemetry) gets the reference's spans: the same names,
+    categories and args around the student's steps."""
+    from repro.telemetry import trace as JT
+    from repro_torch.telemetry import trace as TT
     acfg = TAG.AgentConfig(variant="eat-d", T=T, hidden=H)
     teacher = TAG.init_actor(TECFG, acfg, generator=torch.Generator(),
                              device="cpu")
     with pytest.raises(ValueError, match="diffusion teacher"):
         TDIS.distill_actor(teacher, TECFG, acfg, device="cpu")
     acfg = TAG.AgentConfig(variant="eat", T=T, hidden=H)
-    with pytest.raises(ValueError, match="telemetry"):
-        TDIS.distill_actor({}, TECFG, acfg, tracer=object(), device="cpu")
+    jacfg = JAG.AgentConfig(variant="eat", T=T, hidden=H)
+    kw = dict(steps=2, batch=4, dataset=8, log_every=0)
+    obs = np.random.default_rng(0).uniform(
+        size=(6,) + TECFG.obs_shape).astype(np.float32)
+    jtr = JT.Tracer(JT.TraceConfig(enabled=True, path=str(tmp_path / "j")))
+    JDIS.distill_actor(jax.random.PRNGKey(1),
+                       JAG.init_actor(jax.random.PRNGKey(0), JECFG, jacfg),
+                       JECFG, jacfg, JDIS.DistillConfig(**kw),
+                       obs=jnp.asarray(obs), tracer=jtr)
+    ttr = TT.Tracer(TT.TraceConfig(enabled=True, path=str(tmp_path / "t")))
+    TDIS.distill_actor(
+        TAG.init_actor(TECFG, acfg, generator=torch.Generator().manual_seed(0),
+                       device="cpu"),
+        TECFG, acfg, TDIS.DistillConfig(**kw), obs=torch.from_numpy(obs),
+        tracer=ttr, generator=torch.Generator().manual_seed(1), device="cpu")
+
+    def spans(tr):
+        return [(e["name"], e["cat"], e["ph"], e["args"]) for e in tr.events]
+    assert spans(ttr) == spans(jtr) == [
+        ("distill", "train", "X", {"steps": 2, "samples": 8, "depth": 0})]
     with pytest.raises(ValueError, match="steps"):
         TDIS.DistillConfig(steps=0)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

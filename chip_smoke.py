@@ -30,9 +30,11 @@ runs, one line per result:
    cells paper-8srv and paper-12srv (K = 32 tasks, B = 256 envs, a whole
    episode), with the kernels' launch counts, reset just before each run,
    and a short profiled rollout: device busy time and idle share. Every
-   rollout of the script (phases 4, 5, 8-10, 15-18) replays its
-   decision as CUDA graphs (`actors/program.py`), whose captures add
-   their launches to the counts at every replay;
+   rollout of the script (phases 4, 5, 8-10, 15-19, but phase 19's
+   reference backend) replays its decision as CUDA graphs
+   (`actors/program.py`), and every serving decision of phase 20 the
+   graph of `act`; their captures add their launches to the counts at
+   every replay;
 5. kernel path against plain path inside the loop: fifo closed loop,
    EAT teacher-forced, EAT closed loop on aggregate metrics;
 6. a timing row per kernel: device and call time, plain-version time,
@@ -117,7 +119,35 @@ runs, one line per result:
    ms per window, the split by span, ms per decision, the idle share of a
    profiled window; fifo and greedy streams on the card against the CPU
    (8 streams x 6 windows, same faults and placement); the trace under
-   the strict schema; `profile_policy` for ddpm at batch 0 and 256;
+   the strict schema; `profile_policy` for ddpm at batch 0 and 256 (the
+   host clock around the synchronised decision, the reference's measure)
+   and, on a line of its own, the same decisions timed by CUDA events;
+19. the API facade (`repro_torch.api`) on paper-8srv at the paper's
+   widths: `Simulator` episodic at B = 256 for every registered policy
+   (random, fifo, greedy, EAT ddpm on phase 8's actor, EAT distilled on
+   phase 9's student, PPO on phase 17's state, genetic and harmony at
+   their defaults), each equal to a direct `batch_rollout` on the same
+   traces and generator in every metric tensor, one env_step launch a
+   decision, one chain a ddpm decision, one step a distilled one; the
+   reference backend against fused (fifo and greedy exact, EAT on
+   aggregates); streaming, 64 streams x 2 windows of 128 tasks with
+   chaos faults, forecast placement, a recording tracer with
+   `profile_decisions` and `metrics_path`, equal to a direct `run_stream`;
+   `train_stream_sac` (2 rounds of 16 streams, at most 8 updates each)
+   and `train_stream_ppo` (1 round), the first round's transitions equal
+   to a `StreamRunner` window; `run_sweep` over the paper cells with fifo
+   and greedy;
+20. the serving backend (`serving/backend.py`, `runner.py`) on
+   `multi_model_mix(8, 3)`, one stream: the mirror against the fused
+   backend at B = 1 (fifo, greedy, EAT closed loop and teacher-forced:
+   every record, carry and transition equal); executed in virtual time
+   at full width with tinyllama-1.1b, qwen2-1.5b and llama3.2-3b (fp32,
+   256-token prompts, 16 tasks): the MDP equal to the mirror's, one chain
+   launch a decision, one flash_attention launch an attention layer of
+   every executed prefill, per task the load and generate ms, the span
+   split and peak memory; wall-clock mode (tinyllama-1.1b, 8 tasks) with
+   injected executor errors, retries counted and the patched reward and
+   obs held to the CPU; `serve_stream` one window;
 then the phase 6 rows, a `kernels` JSON line after the card's
 `nvidia-smi` line, and
 `{"ok": true, "device": {...}}` as the last line.
@@ -1483,7 +1513,7 @@ def phase_ppo(dev, card, num_envs=16, rounds=3, upd_iters=10,
     the card against the CPU from the same state and batch within
     LOSS_RTOL. Then the SAC remainder: `sac.train` one round with
     `demo_episodes` and one with `curriculum=training_curriculum`. Returns
-    launches."""
+    (launches, the PPO state)."""
     from repro_torch.common.device import to_device
     from repro_torch.core import agent as AG
     from repro_torch.core import ppo as PPO
@@ -1562,7 +1592,7 @@ def phase_ppo(dev, card, num_envs=16, rounds=3, upd_iters=10,
             "card": card, "with": what, "round_s": time.perf_counter() - t0,
             "warmup_round": hist[0]["warmup"], "updates": ups,
             "critic_loss": hist[0]["critic_loss"], "launches": counts}))
-    return launches
+    return launches, st
 
 
 # the stream's spans (telemetry/schema.py KNOWN_SPANS) phase 18's trace
@@ -1812,8 +1842,10 @@ def phase_stream(dev, card, actor, B=256, windows=8, small_B=8,
             f"{runs[0].placement_counters()['placement_gangs_planned']} "
             f"gangs planned")
 
-    # 5. decision latency of the ddpm actor through its act graph
-    lat = {}
+    # 5. decision latency of the ddpm actor through its act graph: the
+    # host clock around the synchronised call (profile_policy, the
+    # reference's measure), and CUDA events around the call
+    lat, ev = {}, {}
     for batch in (0, B):
         out = PR.profile_policy(ecfg, ddpm, actor,
                                 torch.Generator(device=dev).manual_seed(6),
@@ -1821,9 +1853,605 @@ def phase_stream(dev, card, actor, B=256, windows=8, small_B=8,
         lat[f"batch {batch}"] = {k: out[k] for k in (
             "decision_latency_p50_s", "decision_latency_p95_s",
             "decision_latency_mean_s")}
-    log("phase 18 decision latency " + json.dumps(
+        if dev.type == "cuda":
+            ev[f"batch {batch}"] = act_event_latency(
+                dev, ecfg, ddpm, actor, batch, profile_iters)
+    log("phase 18 decision latency, host clock " + json.dumps(
         {"card": card, "sampler": "ddpm", **lat}))
+    log("phase 18 decision latency, CUDA events around act " + json.dumps(
+        {"card": card, "sampler": "ddpm", **ev}))
     return counts
+
+
+def act_event_latency(dev, ecfg, policy, params, batch, iters, seed=6):
+    """Decision latency by CUDA events recorded around each
+    `ActorProgram.act` call on the current stream, on the inputs
+    `profile_policy` builds (a seeded trace, the reset state, `batch` envs
+    or one), the graph captured and warmed first; the p50, p95 and mean of
+    the same histogram."""
+    from repro_torch.actors.program import actor_program
+    from repro_torch.core import env as EV
+    from repro_torch.core.workload import TraceConfig, make_trace
+    from repro_torch.telemetry import profile as PR
+    from repro_torch.telemetry.metrics import LatencyHistogram
+    trace = make_trace(TraceConfig(num_tasks=ecfg.max_tasks,
+                                   max_servers=ecfg.num_servers,
+                                   num_models=ecfg.num_models),
+                       generator=torch.Generator(dev).manual_seed(0),
+                       device=dev)
+    n = max(batch, 1)
+    btrace = {k: v.expand((n,) + v.shape).contiguous()
+              for k, v in trace.items()}
+    st = EV.reset(ecfg, n, device=dev)
+    _, obs = EV.reset_view(ecfg, btrace, st)
+    prog = actor_program(ecfg, policy)
+    gen = torch.Generator(dev).manual_seed(seed)
+    for _ in range(3):
+        prog.act(btrace, st, obs, gen, params)
+    sync(dev)
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    hist, total = LatencyHistogram(PR.DECISION_EDGES), 0.0
+    for _ in range(iters):
+        start.record()
+        prog.act(btrace, st, obs, gen, params)
+        end.record()
+        end.synchronize()
+        dt = start.elapsed_time(end) / 1e3
+        hist.add_values([dt])
+        total += dt
+    return {"decision_latency_p50_s": hist.percentile(0.50),
+            "decision_latency_p95_s": hist.percentile(0.95),
+            "decision_latency_mean_s": total / iters}
+
+
+# ------------------------------------------------- phases 19-20 (items 7, 8, 14)
+# the dense archs phase 20 serves (by env model id): the port's zoo builds
+# them at full width; the reference's ASSIGNED_ARCHS wait for item 13
+SERVE_ARCHS = ("tinyllama-1.1b", "qwen2-1.5b", "llama3.2-3b")
+
+
+def _run_counted(dev, fn):
+    """(fn(), launches, seconds): every launch count set to 0 just before
+    `fn` and read just after, the device synchronised on both sides."""
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    return out, read_counts(), time.perf_counter() - t0
+
+
+def _same_windows(a, b, ctx):
+    """Two streaming SimResults: window records, final carry and (when
+    both collected) every window's transitions equal."""
+    assert a.per_window == b.per_window, (ctx, a.per_window, b.per_window)
+    for f in a.raw.final_carry._fields:
+        assert torch.equal(getattr(a.raw.final_carry, f),
+                           getattr(b.raw.final_carry, f)), (ctx, f)
+    if a.raw.transitions is not None:
+        for w, (x, y) in enumerate(zip(a.raw.transitions,
+                                       b.raw.transitions)):
+            for f in x._fields[:-1]:
+                assert torch.equal(getattr(x, f), getattr(y, f)), (ctx, w, f)
+            for k, v in x.extras.items():
+                assert torch.equal(v, y.extras[k]), (ctx, w, k)
+
+
+def phase_facade(dev, card, actor, distilled, ppo_params, B=256,
+                 stream_B=64, windows=2, window_tasks=128, train_streams=16,
+                 train_rounds=2, max_updates=8, sweep_streams=32,
+                 offline=None, acfg=None, seed=0):
+    """The API facade (ROADMAP Queue 1 items 7 and 8) at the paper's widths
+    on paper-8srv, through the entry points a user calls:
+
+    1. Episodic `Simulator(WorkloadSpec.episodic(paper-8srv, batch=B))` on
+       the fused backend for random, fifo, greedy, EAT ddpm (phase 8's
+       actor), EAT distilled (phase 9's student), PPO (phase 17's state),
+       genetic and harmony (`offline`: their options, None = defaults),
+       every launch count set to 0 just before each run: each run's
+       per-episode metrics equal a direct `batch_rollout` on the traces
+       and generator its documented rule gives (`split_generator`), in
+       every tensor; one env_step launch per decision, one chain per ddpm
+       decision, one step per distilled one. The reference backend on the
+       card: no env_step launch; fifo and greedy equal to fused (ints and
+       clock exact, quality and return ENV_ATOL), EAT ddpm on aggregates
+       within phase 5's 5 %.
+    2. Streaming: `stream_B` streams x `windows` windows of `window_tasks`
+       tasks with `FaultSpec.chaos`, forecast placement and a recording
+       `TraceConfig` with `profile_decisions` and `metrics_path` (under
+       build/): equal to a direct `run_stream` on the same draws in every
+       record and the final carry; the metrics files written, the trace
+       under the strict schema.
+    3. `train_stream_sac` (`train_rounds` rounds of `train_streams`
+       streams, at most `max_updates` updates a round), then
+       `train_stream_ppo` one round: ms, transitions and updates per
+       round; the first round's transitions equal a `StreamRunner(collect=
+       True)` window on the generators the trainer derives.
+    4. `run_sweep(paper_scenarios(), ["fifo", "greedy"])`: one window of
+       `sweep_streams` streams each, rows in the reference's schema.
+    Returns launches."""
+    from repro_torch import api
+    from repro_torch.api.simulator import split_generator
+    from repro_torch.core import agent as AG
+    from repro_torch.core import ppo as PPO
+    from repro_torch.core import rollout as RO
+    from repro_torch.core import sac as SAC
+    from repro_torch.core import scenarios as SC
+    from repro_torch.faults import FaultSpec
+    from repro_torch.placement import PlacementSpec
+    from repro_torch.telemetry import schema as SCH
+    from repro_torch.telemetry.trace import TraceConfig
+    from repro_torch.traffic import stream as ST
+    from repro_torch.traffic import sweep as SW
+    from repro_torch.training import stream_train as STT
+    acfg = acfg or AG.AgentConfig()
+    cuda = dev.type == "cuda"
+    sc = SC.paper_scenarios()[1]
+    assert sc.name == "paper-8srv"
+    ecfg = sc.ecfg
+    launches = {}
+    opts = offline or {}
+
+    def gen(s):
+        return torch.Generator(device=dev).manual_seed(s)
+
+    # 1. episodic, every registered policy
+    eat = {"acfg": acfg}
+    specs = [
+        ("random", api.PolicySpec("random"), {}),
+        ("fifo", api.PolicySpec("fifo"), {}),
+        ("greedy", api.PolicySpec("greedy"), {}),
+        ("eat ddpm", api.PolicySpec("eat", params=actor, options=eat),
+         {"denoiser_chain": 1}),
+        ("eat distilled", api.PolicySpec("eat", params=distilled,
+                                         sampler="distilled", options=eat),
+         {"denoiser_step": 1}),
+        ("ppo", api.PolicySpec("ppo", params=ppo_params), {}),
+        ("genetic", api.PolicySpec("genetic",
+                                   options=opts.get("genetic", {})), {}),
+        ("harmony", api.PolicySpec("harmony",
+                                   options=opts.get("harmony", {})), {})]
+    fused = api.Simulator(api.WorkloadSpec.episodic(sc, batch=B), device=dev)
+    ref = api.Simulator(api.WorkloadSpec.episodic(sc, batch=B),
+                        api.ExecSpec(backend="reference"), device=dev)
+    T = ecfg.max_steps
+    table, fused_runs = [], {}
+    for label, spec, per_decision in specs:
+        res, counts, secs = _run_counted(dev, lambda: fused.run(spec, seed))
+        add_counts(launches, counts)
+        rp = fused.resolve(spec)
+        g_data, g_run, _ = split_generator(gen(seed), 3, dev)
+        traces = SC.make_scenario_trace_batch(sc, B, generator=g_data,
+                                              device=dev)
+        want = RO.batch_rollout(ecfg, traces, rp.policy, rp.params,
+                                generator=g_run, device=dev)
+        for k, v in want.metrics.items():
+            assert np.array_equal(res.metrics[k], v.cpu().numpy()), (label, k)
+        if not cuda:
+            pass                  # the plain versions count no launches
+        elif label in ("genetic", "harmony"):   # + the search's fitness
+            assert counts["env_step"] > T, (label, counts)     # rollouts
+        else:
+            assert counts["env_step"] == T, (label, counts)
+        for name in ("denoiser_chain", "denoiser_step"):
+            assert not cuda or counts[name] == per_decision.get(name, 0) * T, \
+                (label, counts)
+        fused_runs[label] = res
+        table.append({"policy": label, "trained": res.trained,
+                      "ms_per_decision": 1e3 * res.wall_s / T,
+                      "run_s": secs,
+                      "launches": {k: v for k, v in counts.items() if v},
+                      **{k: res.summary[k] for k in (
+                          "mean_avg_response", "mean_avg_quality",
+                          "mean_reload_rate", "mean_episode_return")}})
+    log("phase 19 facade episodic " + json.dumps({
+        "card": card, "cell": "paper-8srv", "B": B, "decisions": T,
+        "runs": table,
+        "check": "every run == a direct batch_rollout on the same traces "
+                 "and generator state, every metric tensor"}))
+    by_label = {label: spec for label, spec, _ in specs}
+    for label in ("fifo", "greedy", "eat ddpm"):
+        res, counts, _ = _run_counted(
+            dev, lambda: ref.run(by_label[label], seed))
+        add_counts(launches, counts)
+        assert counts["env_step"] == 0, counts
+        f = fused_runs[label]
+        if label == "eat ddpm":
+            agg = {}
+            for key in ("avg_response", "avg_quality", "num_scheduled",
+                        "episode_return"):
+                a = float(np.mean(f.metrics[key], dtype=np.float64))
+                b = float(np.mean(res.metrics[key], dtype=np.float64))
+                agg[key] = [a, b]
+                assert abs(a - b) <= 0.05 * max(abs(b), 1e-6), (key, a, b)
+            log("phase 19 reference vs fused, eat ddpm closed loop: means "
+                "within 5% " + json.dumps(agg))
+        else:
+            ctx = f"reference vs fused {label}"
+            _same_state(f.raw.final_state, res.raw.final_state, ctx)
+            _same_metrics({k: torch.from_numpy(v) for k, v in
+                           f.metrics.items()},
+                          {k: torch.from_numpy(v) for k, v in
+                           res.metrics.items()}, ctx)
+            log(f"phase 19 reference vs fused, {label}: final EnvState and "
+                f"metrics equal (quality and return within {ENV_ATOL}); "
+                f"the reference backend launches no env_step")
+
+    # 2. streaming with faults, placement and telemetry
+    build = ROOT / "build"
+    tcfg = TraceConfig(enabled=True, path=str(build / "facade_trace.json"),
+                       metrics_path=str(build / "facade_metrics.prom"),
+                       profile_decisions=True, profile_iters=20)
+    faults = FaultSpec.chaos(seed)
+    place = PlacementSpec(policy="forecast", interval=1)
+    wl = api.WorkloadSpec.streaming(sc, streams=stream_B,
+                                    num_windows=windows,
+                                    window_tasks=window_tasks)
+    sim = api.Simulator(wl, api.ExecSpec(faults=faults, placement=place,
+                                         trace=tcfg), device=dev)
+    spec = api.PolicySpec("eat", params=actor, options=eat)
+    res, counts, secs = _run_counted(dev, lambda: sim.run(spec, seed))
+    add_counts(launches, counts)
+    rp = sim.resolve(spec)
+    ecfg_s, tcfg_s, proc = api.resolve_cell(sc, window_tasks)
+    g_data, g_run, _ = split_generator(gen(seed), 3, dev)
+    want = ST.run_stream(
+        ecfg_s, rp.policy, rp.params,
+        ST.ProcessTaskSource(proc, tcfg_s, g_data, num_streams=stream_B,
+                             device=dev), g_run,
+        ST.StreamConfig(num_windows=windows, num_streams=stream_B,
+                        faults=faults, placement=place), device=dev)
+    assert res.per_window == want.per_window, (res.per_window,
+                                               want.per_window)
+    for f in want.final_carry._fields:
+        assert torch.equal(getattr(res.raw.final_carry, f),
+                           getattr(want.final_carry, f)), f
+    T_w = min(4 * window_tasks, ecfg_s.max_steps)
+    # + the decision-latency probe's graphed act calls, one chain each
+    assert not cuda or counts["env_step"] == windows * T_w, counts
+    assert not cuda or counts["denoiser_chain"] >= windows * T_w, counts
+    for p in (tcfg.metrics_path, tcfg.metrics_path + ".jsonl"):
+        assert Path(p).stat().st_size > 0, p
+    errors = SCH.validate_trace(tcfg.path, strict_names=True)
+    assert not errors, errors[:5]
+    events = json.load(open(tcfg.path))["traceEvents"]
+    spans = {k: 1e3 * v["total_s"] for k, v in
+             SCH.span_durations(events).items()}
+    s = res.summary
+    log("phase 19 facade streaming " + json.dumps({
+        "card": card, "cell": f"paper-8srv, {window_tasks}-task windows",
+        "streams": stream_B, "windows": windows, "decisions_per_window": T_w,
+        "faults": "chaos", "placement": "forecast, interval 1",
+        "run_s": secs, "wall_s": res.wall_s, "span_ms_total": spans,
+        "launches": {k: v for k, v in counts.items() if v},
+        "decision_latency_host_p50_p95_s": [s["decision_latency_p50_s"],
+                                            s["decision_latency_p95_s"]],
+        "tasks": {k: s[k] for k in ("tasks_injected", "tasks_scheduled",
+                                    "tasks_dropped", "tasks_leftover")},
+        "check": "== run_stream on the same draws: every window record and "
+                 "the final carry"}))
+
+    # 3. stream training
+    scfg = SAC.SACConfig()
+    stcfg = STT.StreamTrainConfig(rounds=train_rounds, streams=train_streams,
+                                  max_updates_per_round=max_updates)
+    flats, marks = [], []
+
+    def hook(r, flat):
+        flats.append(flat)
+
+    def mark(r, row, state):
+        sync(dev)
+        marks.append(time.perf_counter())
+    t_start = [0.0]
+
+    def train():
+        t_start[0] = time.perf_counter()
+        return STT.train_stream_sac(ecfg, acfg, scfg, stcfg, seed=seed,
+                                    transition_hook=hook, callback=mark,
+                                    device=dev)
+    out, counts, secs = _run_counted(dev, train)
+    add_counts(launches, counts)
+    round_ms = [float(x) for x in 1e3 * np.diff([t_start[0]] + marks)]
+    g = gen(seed)
+    SAC.host_rng(g)
+    SAC.init_train_state(ecfg, acfg, generator=g, device=dev)
+    g_src, g_stream = split_generator(g, 2, dev)
+    (_, proc8, tc8), = STT.resolve_cells(ecfg, None, None)
+    runner = ST.StreamRunner(
+        ecfg, SAC.warmup_policy(ecfg), {},
+        ST.CurriculumTaskSource([(proc8, tc8)], g_src,
+                                num_streams=train_streams, device=dev),
+        g_stream, ST.StreamConfig(num_streams=train_streams), device=dev)
+    first = SAC.flatten_valid_transitions(
+        runner.run_window(collect=True).transitions)
+    for a, b in zip(first, flats[0]):
+        assert np.array_equal(a, b)
+    T8 = min(4 * ecfg.max_tasks, ecfg.max_steps)
+    assert not cuda or counts["env_step"] == train_rounds * T8, counts
+    ppo, pcounts, psecs = _run_counted(dev, lambda: STT.train_stream_ppo(
+        ecfg, PPO.PPOConfig(), STT.StreamTrainConfig(
+            rounds=1, streams=train_streams,
+            max_updates_per_round=max_updates), seed=seed, device=dev))
+    add_counts(launches, pcounts)
+    assert ppo.history[0]["updates"] > 0
+    assert not cuda or pcounts["env_step"] == T8, pcounts
+    log("phase 19 stream training " + json.dumps({
+        "card": card, "cell": "paper-8srv (Poisson 0.1, 32-task windows)",
+        "streams": train_streams, "sac_round_ms": round_ms,
+        "sac_rows": [{k: r[k] for k in ("transitions", "updates", "warmup",
+                                        "buffer_size", "latency_p99")}
+                     for r in out.history],
+        "sac_launches": {k: v for k, v in counts.items() if v},
+        "ppo_round_ms": 1e3 * psecs,
+        "ppo_row": {k: ppo.history[0][k] for k in ("transitions",
+                                                  "updates")},
+        "check": "round 0's transitions == a StreamRunner(collect=True) "
+                 "window on the trainer's generators"}))
+
+    # 4. the sweep
+    rows, counts, secs = _run_counted(dev, lambda: SW.run_sweep(
+        SC.paper_scenarios(), ["fifo", "greedy"], seed,
+        stream=ST.StreamConfig(num_windows=1, num_streams=sweep_streams),
+        verbose=False, device=dev))
+    add_counts(launches, counts)
+    keys = set(rows[0])
+    assert all(set(r) == keys for r in rows)
+    assert {"policy", "trained", "mode", "exec_backend", "cell", "wall_s",
+            "arrival", "num_servers", "tasks_per_wall_s",
+            "latency_p99"} <= keys
+    log("phase 19 sweep " + json.dumps({
+        "card": card, "streams": sweep_streams, "run_s": secs,
+        "rows": [{k: r[k] for k in ("cell", "policy", "tasks_injected",
+                                    "latency_p50", "latency_p99",
+                                    "tasks_per_wall_s")} for r in rows]}))
+    return launches
+
+
+def _attn_layers(arch):
+    from repro_torch.common.config import get_config
+    from repro_torch.models.lm import n_periods, period_spec
+    cfg = get_config(arch)
+    return n_periods(cfg) * sum(m == "attn" for m, _ in period_spec(cfg))
+
+
+def _task_rows(events):
+    """Per executed task, from the serving trace: arch, c, reuse, steps,
+    the task's ms, its weight-load ms and its prefill + decode ms (the
+    spans nested in its `execute_task`)."""
+    spans = [e for e in events if e.get("ph") == "X"]
+    rows = []
+    for e in spans:
+        if e["name"] != "execute_task":
+            continue
+        lo, hi = e["ts"], e["ts"] + e["dur"]
+        inner = [c for c in spans if c is not e and lo <= c["ts"]
+                 and c["ts"] + c["dur"] <= hi]
+
+        def ms(name):
+            return sum(c["dur"] for c in inner if c["name"] == name) / 1e3
+        a = e["args"]
+        rows.append({"arch": a["arch"], "c": a["c"], "reuse": a["reuse"],
+                     "steps": a["steps"], "task_ms": e["dur"] / 1e3,
+                     "load_ms": ms("model_load"),
+                     "generate_ms": ms("prefill") + ms("decode"),
+                     "prefill_ms": ms("prefill")})
+    return rows
+
+
+def phase_serving(dev, card, actor, archs=SERVE_ARCHS, reduced=False,
+                  mirror_tasks=32, exec_tasks=16, wall_tasks=8,
+                  prompt_len=256, acfg=None, seed=0):
+    """The stream-native serving backend (ROADMAP Queue 1 item 14) on
+    `multi_model_mix(8, 3)`, one stream, through `Simulator(ExecSpec(
+    backend="serving"))` and `serve_stream`:
+
+    a. mirror (`serving_execute=False`): 2 windows of `mirror_tasks` tasks
+       against the fused backend at B = 1 on the same draws and
+       generator: fifo, greedy and EAT (phase 8's actor, ddpm) closed loop
+       equal in every window record, the final carry and the collected
+       transitions (one env_step launch per decision, one chain per EAT
+       decision); EAT's fused actions replayed through `sequence_policy`
+       on a `ServingStreamRunner`, equal too;
+    b. executed in virtual time at full width (`archs`, fp32, prompts of
+       `prompt_len` tokens), 1 window of `exec_tasks` tasks, EAT ddpm:
+       final carry, records and transitions equal to the mirror's; one
+       chain launch per decision, one flash_attention launch per attention
+       layer of every executed prefill; per task the load and generate
+       ms, arch, c and reuse (from the trace), the pool ledger,
+       `serving_stats()`, the split by span, peak device memory;
+    c. wall clock (warmup on), tinyllama-1.1b, `wall_tasks` tasks, with
+       injected executor errors (`FaultSpec(seed=2, exec_error_prob=0.3)`):
+       measured busy seconds per task, the retry, degrade and give-up
+       counters; the first patched decision's reward, obs and state held
+       to `wall_patch` on the CPU (ENV_ATOL, state exact);
+    d. `serve_stream` through `ServingStreamRunner`, 1 window, fifo on
+       tinyllama-1.1b reduced.
+    `reduced=True` shrinks b and c for a rehearsal on the CPU. Returns
+    launches."""
+    from repro_torch import api
+    from repro_torch.api.simulator import split_generator
+    from repro_torch.core import agent as AG
+    from repro_torch.core import rollout as RO
+    from repro_torch.core import scenarios as SC
+    from repro_torch.faults import FaultSpec
+    from repro_torch.serving import backend as SB
+    from repro_torch.serving import runner as SR
+    from repro_torch.telemetry import schema as SCH
+    from repro_torch.telemetry.trace import TraceConfig
+    from repro_torch.traffic import stream as ST
+    acfg = acfg or AG.AgentConfig()
+    sc = SC.multi_model_mix(8, 3)
+    launches = {}
+    eat = api.PolicySpec("eat", params=actor, options={"acfg": acfg})
+    mirror_spec = api.ExecSpec(backend="serving", serving_archs=archs,
+                               serving_execute=False)
+
+    # a. mirror against fused at B = 1
+    wl = api.WorkloadSpec.streaming(sc, streams=1, num_windows=2,
+                                    window_tasks=mirror_tasks, collect=True)
+    T = min(4 * mirror_tasks, sc.ecfg.max_steps)
+    fused_eat = None
+    for label, spec in (("fifo", api.PolicySpec("fifo")),
+                        ("greedy", api.PolicySpec("greedy")),
+                        ("eat ddpm", eat)):
+        f = api.Simulator(wl, device=dev).run(spec, seed)
+        m, counts, secs = _run_counted(dev, lambda: api.Simulator(
+            wl, mirror_spec, device=dev).run(spec, seed))
+        add_counts(launches, counts)
+        _same_windows(f, m, f"mirror vs fused {label}")
+        if dev.type == "cuda":
+            assert counts["env_step"] == 2 * T, counts
+            if label == "eat ddpm":
+                assert counts["denoiser_chain"] == 2 * T, counts
+        if label == "eat ddpm":
+            fused_eat = f
+        log(f"phase 20a serving mirror == fused at B = 1, {label}, closed "
+            f"loop: 2 windows of {mirror_tasks} tasks ({T} decisions each), "
+            f"every record, the final carry and the transitions; "
+            f"{1e3 * secs / (2 * T):.4f} ms a decision, launches "
+            + json.dumps({k: v for k, v in counts.items() if v}))
+    ecfg_s, tcfg_s, proc = api.resolve_cell(sc, mirror_tasks)
+    g_data, g_run, _ = split_generator(
+        torch.Generator(device=dev).manual_seed(seed), 3, dev)
+    runner = SR.ServingStreamRunner(
+        ecfg_s, RO.sequence_policy(ecfg_s), None,
+        ST.ProcessTaskSource(proc, tcfg_s, g_data, device=dev), g_run,
+        ST.StreamConfig(num_streams=1),
+        rollout_fn=SB.ServingRollout(8, archs=archs, execute=False,
+                                     device=dev), device=dev)
+    for tr in fused_eat.raw.transitions:
+        runner.run_window(params={"seq": tr.action})
+    assert runner.per_window == fused_eat.per_window
+    for f in runner.carry._fields:
+        assert torch.equal(getattr(runner.carry, f),
+                           getattr(fused_eat.raw.final_carry, f)), f
+    log("phase 20a serving mirror, EAT teacher-forced: the fused run's "
+        "actions replayed through sequence_policy == the fused run (records "
+        "and final carry)")
+
+    # b. executed, virtual time, full width
+    wl16 = api.WorkloadSpec.streaming(sc, streams=1, num_windows=1,
+                                      window_tasks=exec_tasks, collect=True)
+    T16 = min(4 * exec_tasks, sc.ecfg.max_steps)
+    mirror16 = api.Simulator(wl16, mirror_spec, device=dev).run(eat, seed)
+    path = ROOT / "build" / "serve_trace.json"
+    real = api.Simulator(wl16, api.ExecSpec(
+        backend="serving", serving_archs=archs, serving_reduced=reduced,
+        serving_prompt_len=prompt_len,
+        trace=TraceConfig(enabled=True, path=str(path))), device=dev)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    r, counts, secs = _run_counted(dev, lambda: real.run(eat, seed))
+    add_counts(launches, counts)
+    peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            if dev.type == "cuda" else None)
+    _same_windows(mirror16, r, "executed vs mirror")
+    events = json.load(open(path))["traceEvents"]
+    assert not SCH.validate_trace(str(path), strict_names=True)
+    tasks = _task_rows(events)
+    stats = r.summary
+    assert len(tasks) == stats["tasks_executed"] > 0
+    if dev.type == "cuda":
+        assert counts["denoiser_chain"] == T16, counts
+        want_fa = sum(_attn_layers(t["arch"]) for t in tasks)
+        assert counts["flash_attention"] == want_fa, (counts, want_fa)
+    split = {k: 1e3 * v["self_total_s"] for k, v in
+             SCH.span_durations(events).items()}
+    log("phase 20b serving executed " + json.dumps({
+        "card": card, "cell": "serve-3arch-8srv", "archs": list(archs),
+        "reduced": reduced, "prompt_len": prompt_len, "tasks": exec_tasks,
+        "decisions": T16, "run_s": secs, "wall_s": r.wall_s,
+        "launches": {k: v for k, v in counts.items() if v},
+        "attention_layers": {a: _attn_layers(a) for a in archs},
+        "per_task": tasks,
+        "pool": {k: stats[k] for k in ("model_loads", "model_reuses",
+                                       "tasks_executed")},
+        "serving_stats": {k: v for k, v in stats.items() if k.startswith(
+            ("policy_", "env_advance_", "executor_", "decision_"))},
+        "span_self_ms": split, "peak_device_gib": peak,
+        "check": "final carry, records and transitions == the mirror's"}))
+    del real, r
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # c. wall clock with injected executor errors
+    wl8 = api.WorkloadSpec.streaming(sc, streams=1, num_windows=1,
+                                     window_tasks=wall_tasks)
+    wall = api.Simulator(wl8, api.ExecSpec(
+        backend="serving", serving_archs=("tinyllama-1.1b",),
+        serving_reduced=reduced, serving_wall_clock=True,
+        serving_prompt_len=prompt_len,
+        faults=FaultSpec(seed=2, exec_error_prob=0.3)), device=dev)
+    seen = []
+    plain_patch = SB.wall_patch
+
+    def recording_patch(*args):
+        out = plain_patch(*args)
+        if not seen:
+            seen.append((args, out))
+        return out
+    SB.wall_patch = recording_patch
+    try:
+        w, counts, secs = _run_counted(dev, lambda: wall.run("greedy", seed))
+    finally:
+        SB.wall_patch = plain_patch
+    add_counts(launches, counts)
+    inner = wall._rollout.inner
+    fc = wall._rollout.fault_counters()
+    assert inner.warmup and len(inner.measured_busy) == inner.tasks_executed
+    assert fc["exec_retries"] > 0, fc
+    cpu = torch.device("cpu")
+    (ecfg_w, trace, q_pre, nstate, k, sel, busy), got = seen[0]
+    want = plain_patch(ecfg_w, {k_: v.cpu() for k_, v in trace.items()},
+                       type(q_pre)(*(x.cpu() for x in q_pre)),
+                       type(nstate)(*(x.cpu() for x in nstate)), k,
+                       sel.cpu(), busy.cpu())
+    _same_state(type(nstate)(*(x.cpu() for x in got[0])), want[0],
+                "wall patch card vs cpu")
+    for i, name in ((2, "obs"), (3, "reward")):
+        err = (got[i].cpu() - want[i]).abs().max().item()
+        assert err <= ENV_ATOL * max(1.0, want[i].abs().max().item()), \
+            (name, err)
+    assert torch.equal(got[4].cpu(), want[4])
+    log("phase 20c serving wall clock " + json.dumps({
+        "card": card, "arch": "tinyllama-1.1b", "reduced": reduced,
+        "tasks": wall_tasks, "run_s": secs,
+        "measured_busy_s": inner.measured_busy, "fault_counters": fc,
+        "latency_p50_p99": [w.summary["latency_p50"],
+                            w.summary["latency_p99"]],
+        "launches": {k_: v for k_, v in counts.items() if v},
+        "check": "the first patched decision: state exact, reward and obs "
+                 "within ENV_ATOL of wall_patch on the CPU"}))
+    del wall, inner
+    gc.collect()
+
+    # d. serve_stream
+    fn = api.rollout_fn_for(api.ExecSpec(
+        backend="serving", serving_archs=("tinyllama-1.1b",)))
+    ecfg8, tcfg8, proc8 = api.resolve_cell(sc, wall_tasks)
+    res, counts, secs = _run_counted(dev, lambda: SR.serve_stream(
+        ecfg8, RO.fifo_policy(ecfg8), {},
+        ST.ProcessTaskSource(proc8, tcfg8,
+                             torch.Generator(device=dev).manual_seed(seed),
+                             device=dev),
+        torch.Generator(device=dev).manual_seed(seed + 1),
+        ST.StreamConfig(num_windows=1, num_streams=1), rollout_fn=fn,
+        device=dev))
+    add_counts(launches, counts)
+    assert res.summary["tasks_executed"] == res.summary["tasks_scheduled"] > 0
+    assert res.summary["wall_clock"] is False
+    log("phase 20d serve_stream " + json.dumps({
+        "card": card, "run_s": secs,
+        "summary": {k: res.summary[k] for k in (
+            "tasks_scheduled", "tasks_executed", "model_loads",
+            "model_reuses", "latency_p50")},
+        "launches": {k: v for k, v in counts.items() if v}}))
+    return launches
 
 
 def phase_flash(dev, cases=FA_CASES):
@@ -2469,11 +3097,21 @@ def main():
     add_counts(launches, phase_paper(dev, card, ts.actor)[0])
     log(f"phase 16 took {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
-    add_counts(launches, phase_ppo(dev, card))
+    counts, ppo_state = phase_ppo(dev, card)
+    add_counts(launches, counts)
     log(f"phase 17 took {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
     add_counts(launches, phase_stream(dev, card, ts.actor))
     log(f"phase 18 took {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    add_counts(launches, phase_facade(dev, card, ts.actor, params8,
+                                      ppo_state.params))
+    log(f"phase 19 took {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    add_counts(launches, phase_serving(dev, card, ts.actor))
+    log(f"phase 20 took {time.perf_counter() - t0:.3f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     errs["flash_attention"], flash_timing = phase_flash(dev)
     per_request = {}

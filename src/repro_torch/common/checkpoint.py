@@ -2,10 +2,11 @@
 
 The reference saves a params tree as `<dir>/<step>/arrays.npz`, one array
 per path key ("denoiser/layers/0/w"; list indices are digits), beside a
-`treedef.json`. Loading rebuilds the nested dicts and lists with numpy
-alone, and the tensors keep the reference's layout (a dense weight is
-(in, out)), so a policy trained by the reference runs in the port
-unchanged; `save_checkpoint` writes the same layout, so
+`treedef.json`. `load_params` rebuilds the nested dicts and lists with
+numpy alone and `restore_checkpoint` fills a target tree of the same
+shape; the tensors keep the reference's layout (a dense weight is (in,
+out)), so a policy trained by the reference runs in the port unchanged.
+`save_checkpoint` writes the same layout, so
 `repro.common.checkpoint.restore_checkpoint` reads what the port trained.
 `train_state_from_jax` carries a whole reference SAC `TrainState` over.
 """
@@ -21,7 +22,8 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import resolve_device
-from repro_torch.common.pytree import tree_map, tree_paths
+from repro_torch.common.pytree import (tree_map, tree_paths,
+                                       tree_unflatten)
 
 
 def latest_step(directory: str) -> Optional[int]:
@@ -73,6 +75,35 @@ def load_params(npz_dir: str, step: Optional[int] = None, *,
     with np.load(os.path.join(npz_dir, str(step), "arrays.npz")) as data:
         flat = {k: data[k] for k in data.files}
     return params_from_jax(_unflatten(flat), device=device)
+
+
+def restore_checkpoint(directory: str, target: Any,
+                       step: Optional[int] = None) -> Any:
+    """Restore `<directory>/<step>/arrays.npz` (the latest step when `step`
+    is None) into the structure of `target`: every tensor leaf of `target`
+    is replaced by the checkpoint's array under its path key, on that
+    leaf's device and in its dtype. Raises FileNotFoundError when there is
+    no step, KeyError on a missing key and ValueError on a shape that
+    differs from the target's."""
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {directory}")
+    with np.load(os.path.join(directory, str(step), "arrays.npz")) as data:
+        flat = {k: data[k] for k in data.files}
+    leaves = []
+    for key, like in tree_paths(target).items():
+        if key not in flat:
+            raise KeyError(f"checkpoint missing key {key}")
+        arr = flat[key]
+        if tuple(arr.shape) != tuple(np.shape(like)):
+            raise ValueError(f"checkpoint key {key} has shape "
+                             f"{tuple(arr.shape)}, the target "
+                             f"{tuple(np.shape(like))}")
+        leaves.append(torch.from_numpy(np.array(arr)).to(
+            device=like.device, dtype=like.dtype)
+            if isinstance(like, torch.Tensor) else arr)
+    return tree_unflatten(target, leaves)
 
 
 def save_checkpoint(directory: str, step: int, tree: Any) -> str:

@@ -306,12 +306,17 @@ def evaluate_policy_batch(ecfg: EV.EnvConfig, traces: Dict, policy,
                           generator=None, params=None,
                           num_steps: Optional[int] = None, *,
                           device=None) -> Dict[str, np.ndarray]:
-    """B traces (dict of (B, K) tensors) in one fused `batch_rollout`:
-    per-episode (B,) numpy metric arrays. (The reference routes this
-    through its API facade, ROADMAP Queue 1 item 7; the port calls the
-    rollout directly.)"""
-    res = RO.batch_rollout(ecfg, traces, policy,
-                           {} if params is None else params,
-                           generator=generator, num_steps=num_steps,
-                           device=device)
-    return {k: v.cpu().numpy() for k, v in res.metrics.items()}
+    """Deprecated: use `repro_torch.api.evaluate_batch` (same per-episode
+    metric arrays, plus PolicySpec resolution and pluggable execution
+    backends).
+
+    Batched evaluation: B traces (dict of (B, K) tensors) in one fused
+    rollout; `policy` follows the rollout protocol. Returns per-episode
+    (B,) numpy metric arrays."""
+    import warnings
+    warnings.warn(
+        "baselines.evaluate_policy_batch is deprecated; use "
+        "repro_torch.api.evaluate_batch", DeprecationWarning, stacklevel=2)
+    from repro_torch.api import evaluate_batch
+    return evaluate_batch(ecfg, traces, policy, generator, params=params,
+                          num_steps=num_steps, device=device)

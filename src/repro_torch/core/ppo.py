@@ -232,12 +232,12 @@ def train_ppo(ecfg: EV.EnvConfig, pcfg: PPOConfig, trace_fn,
     with its metrics and, beyond the reference's rows, its round and the
     updates the round ran).
 
-    `exec_spec` needs the API facade (ROADMAP Queue 1 item 7) and is
-    refused."""
+    `exec_spec` (an `api.ExecSpec`) picks the collection execution backend
+    (reference or fused, equal results)."""
+    from repro_torch.api.backends import rollout_fn_for
+    from repro_torch.api.specs import ExecSpec
     from repro_torch.core.sac import host_rng
-    if exec_spec is not None:
-        raise ValueError("exec_spec needs the API facade, not ported yet "
-                         "(ROADMAP Queue 1 item 7); pass exec_spec=None")
+    rollout = rollout_fn_for(exec_spec or ExecSpec())
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     rng = host_rng(gen)
@@ -252,8 +252,8 @@ def train_ppo(ecfg: EV.EnvConfig, pcfg: PPOConfig, trace_fn,
         B = min(num_envs, num_episodes - ep)
         round_trace_fn = pick(rng)[1] if pick else trace_fn
         traces = round_trace_fn(gen, B)
-        res = RO.batch_rollout(ecfg, traces, ppo_policy(ecfg), st.params,
-                               generator=gen, collect=True, device=dev)
+        res = rollout(ecfg, traces, ppo_policy(ecfg), st.params,
+                      generator=gen, collect=True, device=dev)
         data = pool_gae(res.transitions, pcfg)
         st, n_upd = run_ppo_epochs(st, data, rng, ecfg, pcfg)
         host = {k: v.cpu() for k, v in res.metrics.items()}

@@ -205,11 +205,16 @@ def greedy_policy(ecfg: EV.EnvConfig) -> Policy:
 def sequence_policy(ecfg: EV.EnvConfig) -> Policy:
     """Replay a given action sequence by decision index: env b at decision
     i plays `params["seq"][b, i]` ((B, T, A) in env space; clamped at the
-    end). This is how a schedule optimised offline (genetic, harmony) or a
-    teacher's collected actions run through the rollout."""
+    end), or `params["seq"][i]` for every env when the sequence is one
+    (T, A) schedule (the reference's unbatched params). This is how a
+    schedule optimised offline (genetic, harmony) or a teacher's collected
+    actions run through the rollout."""
     def policy(params, generator, traces, state, obs):
         seq = params["seq"]
-        idx = torch.clamp(state.steps_taken.to(torch.int64), max=seq.shape[1] - 1)
+        idx = torch.clamp(state.steps_taken.to(torch.int64),
+                          max=seq.shape[-2] - 1)
+        if seq.ndim == 2:
+            return seq[idx], {}
         return seq[torch.arange(seq.shape[0], device=seq.device), idx], {}
     return policy
 

@@ -12,9 +12,9 @@ Params are nested dicts of tensors; gradients come from
 `torch.autograd.grad` over their leaves and the optimizer is the
 reference's functional Adam (`training.optimizer`). Every draw of
 `update_step` can be passed in (`draws`), else it comes from the
-generator. Collection runs the fused `batch_rollout`, so on the card every
-decision launches the env-step and chain kernels; replay stays on the
-host.
+generator. Collection runs through the API facade's backends (the fused
+`batch_rollout` by default), so on the card every decision launches the
+env-step and chain kernels; replay stays on the host.
 """
 from __future__ import annotations
 
@@ -235,22 +235,20 @@ def collect_batch(ecfg: EV.EnvConfig, acfg: AG.AgentConfig, actor_params,
                   traces: Dict, generator, buffer: ReplayBuffer, *,
                   warmup: bool = False, exec_spec=None,
                   device=None) -> Tuple[Dict, int]:
-    """Roll out B parallel episodes with the fused `batch_rollout` and
-    push the valid transitions into the replay buffer (agent-space
-    actions). Returns (metrics of (B,) tensors, n added).
+    """Roll out B parallel episodes and push the valid transitions into the
+    replay buffer (agent-space actions). Returns (metrics of (B,) tensors,
+    n added).
 
-    `exec_spec` picks an execution backend of the API facade, which the
-    port does not have yet (ROADMAP Queue 1 item 7): only None, the fused
-    engine, is accepted."""
-    if exec_spec is not None:
-        raise ValueError("exec_spec needs the API facade (api/backends.py), "
-                         "not ported yet; collection runs the fused "
-                         "batch_rollout, pass exec_spec=None")
+    `exec_spec` (an `api.ExecSpec`, default fused) picks the execution
+    backend of the API facade (`api.backends.rollout_fn_for`)."""
+    from repro_torch.api.backends import rollout_fn_for
+    from repro_torch.api.specs import ExecSpec
     policy = (warmup_policy(ecfg) if warmup
               else actor_policy(ecfg, acfg, device=device))
     params = {} if warmup else actor_params
-    res = RO.batch_rollout(ecfg, traces, policy, params, generator=generator,
-                           collect=True, device=device)
+    rollout = rollout_fn_for(exec_spec or ExecSpec())
+    res = rollout(ecfg, traces, policy, params, generator=generator,
+                  collect=True, device=device)
     return res.metrics, push_transitions(buffer, res.transitions)
 
 
@@ -359,11 +357,11 @@ def train(ecfg: EV.EnvConfig, acfg: AG.AgentConfig, scfg: SACConfig,
     (a list of `scenarios.Scenario` sharing `ecfg`, e.g.
     `scenarios.training_curriculum(ecfg)`) replaces `trace_fn` for the
     collection rounds: each round samples one cell with the host rng.
-    `exec_spec` needs the API facade (ROADMAP Queue 1 item 7) and is
-    refused rather than ignored."""
+    `exec_spec` (an `api.ExecSpec`) picks the collection execution backend
+    (reference or fused, equal results)."""
     if exec_spec is not None:
-        raise ValueError("exec_spec needs the API facade, not ported yet "
-                         "(ROADMAP Queue 1 item 7); pass exec_spec=None")
+        from repro_torch.api.backends import rollout_fn_for
+        rollout_fn_for(exec_spec)         # a bad spec is refused up front
     if demo_episodes and trace_fn is None:
         raise ValueError("demo_episodes > 0 runs greedy_act demonstrations "
                          "on traces from trace_fn, which is None")
@@ -390,7 +388,8 @@ def train(ecfg: EV.EnvConfig, acfg: AG.AgentConfig, scfg: SACConfig,
         traces = round_trace_fn(gen, B)
         warmup = buffer.size < scfg.warmup_steps
         metrics, n_new = collect_batch(ecfg, acfg, ts.actor, traces, gen,
-                                       buffer, warmup=warmup, device=dev)
+                                       buffer, warmup=warmup,
+                                       exec_spec=exec_spec, device=dev)
         ts, n_upd, losses = run_update_schedule(
             ts, buffer, rng, gen, n_new, ecfg=ecfg, acfg=acfg, scfg=scfg)
         host = {k: v.cpu() for k, v in metrics.items()}

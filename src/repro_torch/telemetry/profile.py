@@ -14,9 +14,9 @@ This module measures it:
 * `profile_policy` — the standalone probe: times one scheduling decision
   (state -> action) of any rollout-protocol policy on a representative
   (trace, state, obs) through the policy's `ActorProgram.act`, its first
-  call (the graph capture on the card) excluded. On the card each
-  decision is timed by CUDA events on the current stream; on the CPU by
-  the host clock.
+  call (the graph capture on the card) excluded. Each decision is timed
+  as the reference times it: the host clock around the call and, on the
+  card, the device's synchronisation (its `block_until_ready`).
 """
 from __future__ import annotations
 
@@ -93,10 +93,10 @@ def profile_policy(ecfg, policy, params, generator=None, *, trace=None,
     per decision step. Single-decision timings on small nets are floored
     by launch latency; the batched probe is where a cheaper sampler's
     compute saving is visible, so latency gates compare samplers at batch
-    scale. On the card each decision is timed by CUDA events recorded
-    around the `act` call on the current stream (so the input copies, the
-    replay and the output copies, on the device's clock); on the CPU by
-    the host clock.
+    scale. Each decision is timed by `time.perf_counter()` around the
+    `act` call and, on the card, `torch.cuda.synchronize` (the input
+    copies, the replay, the output copies and the host's launch work),
+    the reference's measure on every device.
     """
     from repro_torch.actors.program import actor_program
     from repro_torch.common.device import resolve_device, to_device
@@ -130,22 +130,15 @@ def profile_policy(ecfg, policy, params, generator=None, *, trace=None,
         run()
     if cuda:
         torch.cuda.synchronize(dev)
-        start, end = (torch.cuda.Event(enable_timing=True),
-                      torch.cuda.Event(enable_timing=True))
 
     hist = LatencyHistogram(DECISION_EDGES)
     total = 0.0
     for _ in range(iters):
+        t0 = time.perf_counter()
+        run()
         if cuda:
-            start.record()
-            run()
-            end.record()
-            end.synchronize()
-            dt = start.elapsed_time(end) / 1e3
-        else:
-            t0 = time.perf_counter()
-            run()
-            dt = time.perf_counter() - t0
+            torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
         hist.add_values([dt])
         total += dt
     out = {

@@ -50,18 +50,24 @@ class TraceConfig:
     * ``path`` — Chrome trace JSON output (default ``trace.json``); the
       JSONL sidecar lands next to it as ``<path>.jsonl``.
     * ``jsonl`` — also write the JSONL sidecar (one event per line).
+    * ``metrics_path`` — when set, consumers snapshot the unified metrics
+      registry here (Prometheus text; ``<path>.jsonl`` gets the JSONL
+      snapshot) at run end.
+    * ``profile_decisions`` — time per-decision policy inference after a
+      `Simulator.run` (`telemetry.profile.profile_policy`, the host clock
+      around the synchronised decision) and surface p50/p95/p99 in the
+      result summary and sweep rows.
+    * ``profile_iters`` — decisions timed by the profiler probe.
     * ``profiler_dir`` — opt-in `torch.profiler` capture directory
       (device-side profile alongside the host-span trace; the reference's
       ``jax_profiler_dir``).
-
-    The reference's ``metrics_path``, ``profile_decisions`` and
-    ``profile_iters`` are read only by its `api.Simulator`; they come with
-    that facade (ROADMAP Queue 1 item 7). Until then call
-    `telemetry.profile.profile_policy` and `MetricsRegistry` directly.
     """
     enabled: bool = False
     path: str = "trace.json"
     jsonl: bool = True
+    metrics_path: Optional[str] = None
+    profile_decisions: bool = False
+    profile_iters: int = 50
     profiler_dir: Optional[str] = None
 
 

@@ -1,8 +1,7 @@
 """Streaming traffic (port of `repro/traffic`): open-loop arrival
 processes, windowed unbounded-horizon simulation on the batched rollout
-engine, and streaming QoS telemetry. See `arrivals`, `stream`, `metrics`.
-The reference's `policies` and `sweep` import its API facade and wait
-for its port (ROADMAP Queue 1 item 7)."""
+engine, and streaming QoS telemetry. See `arrivals`, `stream`, `metrics`,
+`policies`, `sweep`."""
 from repro_torch.traffic.arrivals import (DiurnalArrivals, FlashCrowdArrivals,
                                           MMPPArrivals, PoissonArrivals,
                                           ReplayArrivals, generate_trace,

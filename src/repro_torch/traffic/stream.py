@@ -58,6 +58,9 @@ class StreamConfig:
     max_steps_per_window: Optional[int] = None   # default min(4K, max_steps)
     max_carry: Optional[int] = None         # leftover slots kept; default K//2
     resp_sla: float = 120.0                 # QoS latency budget (seconds)
+    chunk_size: int = 0                     # arrival buffer refill; 0 = 4K
+    #                                         (read by the task sources'
+    #                                         builders: api, sweep, trainers)
     fused: bool = True                      # fused env-step engine (equal
     #                                         results; False = unfused path)
     faults: Optional[FaultSpec] = None      # deterministic fault injection;

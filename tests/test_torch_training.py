@@ -384,7 +384,7 @@ def test_port_train_runs_updates_and_schedules():
     ({"demo_episodes": 2}, "greedy_act"),
     ({"exec_spec": object()}, "API facade")])
 def test_train_refuses_what_is_not_ported(kw, match):
-    """exec_spec (the API facade, ROADMAP Queue 1 item 7) is refused; a
+    """An exec_spec that is not the API facade's `ExecSpec` is refused; a
     curriculum of anything but `core.scenarios.Scenario` cells, and
     demonstrations without a trace_fn to draw their traces, are refused
     too."""

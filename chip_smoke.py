@@ -63,8 +63,11 @@ runs, one line per result:
    tinyllama's prefill (B = 1, S = T = 2048, H = 32, KV = 4, hd = 64,
    causal), Jamba's (H = 32, KV = 8, hd = 128), a c = 4 chunk batch, hd
    128 and 256, full attention with S != T, sliding windows of 48, 40 and
-   72 (the last two ending mid-tile), S = 17 / T = 33, and S and T off the
-   kernel's tiles;
+   72 (the last two ending mid-tile), S = 17 / T = 33, S and T off the
+   kernel's tiles, and the new families' shapes: whisper's encoder (S = T
+   = 1500, 12 / 12 heads of 64, full) and cross-attention (256 queries
+   against 1500 keys), olmoe's prefill (2048, 16 / 16 heads of 128,
+   causal) and internvl2's (256 patches + 256 tokens, 14 / 2 heads of 64);
 12. the serving main path: a `ServingEngine` of 8 servers serving
    tinyllama-1.1b at full width (1.1 B parameters, fp32) in virtual time,
    16 requests of a paper-8srv trace (prompts of 256-2048 tokens), every
@@ -82,7 +85,8 @@ runs, one line per result:
    B and C split at 2-byte (bf16) and 8-byte (fp32) offsets, bf16 at
    N = 4, and I = 518 (fp32) and 517 (bf16), rows off 16 bytes;
 14. the hybrid served: phase 12's function on a 4-server engine serving
-   one Jamba period without experts at full width
+   one Jamba period without experts (four copies of the period with its
+   experts, 49.4 GiB each, do not fit the card) at full width
    (`jamba-v0.1-52b-8l-dense`: 8 layers, 7 Mamba + 1 attention, 2.7 B
    parameters, fp32), 16 requests of a trace at 0.05 tasks/s, every
    decision from a seeded random EAT actor for 4 servers, every Mamba
@@ -148,6 +152,26 @@ runs, one line per result:
    split and peak memory; wall-clock mode (tinyllama-1.1b, 8 tasks) with
    injected executor errors, retries counted and the patched reward and
    obs held to the CPU; `serve_stream` one window;
+21. the rest of the model zoo served (ROADMAP Queue 1 item 13): (a) the
+   serving backend at its default, `ExecSpec(backend="serving")` with no
+   `serving_archs` (the reference's ten `ASSIGNED_ARCHS`, reduced), on an
+   8-server env with ten models through `api.evaluate_batch`, phase 8's
+   actor deciding, the trace's first ten tasks carrying model ids 0-9:
+   every arch served, each arch's first served request held to the plain
+   attention and scan, one flash_attention launch per attention layer
+   (whisper: per encoder layer and per decoder self- and cross-attention)
+   and one ssm_scan launch per Mamba layer of every prefill; (b) cell
+   serve-olmoe-2srv: phase 12's function on a 2-server engine serving
+   olmoe-1b-7b at full width (6.9 B parameters, fp32, 64 experts, top-8)
+   at 0.025 tasks/s, gangs of 1 or 2, 16 requests, a seeded random EAT
+   actor for 2 servers, two requests of different c held to the plain
+   attention, a profiled generate at S = 2048; (c) whisper-small,
+   internvl2-1b, xlstm-125m and one Jamba period with its experts
+   (`jamba-v0.1-52b-8l`, 49.4 GiB) at full width, one copy each, through
+   `ModelExecutor.generate` on prompts of 256 and 1024 tokens: load,
+   prefill and decode ms, launches per prefill against what the model's
+   structure gives (36, 24, 0, and 1 flash + 7 ssm_scan), every request
+   held to the plain attention and scan;
 then the phase 6 rows, a `kernels` JSON line after the card's
 `nvidia-smi` line, and
 `{"ok": true, "device": {...}}` as the last line.
@@ -275,6 +299,10 @@ FA_CASES = (
     ("S, T off the tiles, hd 128 full", 1, 77, 150, 4, 2, 128, False, 0),
     ("window 40 ends mid-tile", 1, 300, 300, 8, 2, 64, True, 40),
     ("window 72 ends mid-tile, hd 128", 1, 300, 300, 8, 2, 128, True, 72),
+    ("whisper encoder", 1, 1500, 1500, 12, 12, 64, False, 0),
+    ("whisper cross-attention", 1, 256, 1500, 12, 12, 64, False, 0),
+    ("olmoe prefill", 1, 2048, 2048, 16, 16, 128, True, 0),
+    ("internvl2 prefill", 1, 512, 512, 14, 2, 64, True, 0),
 )
 CELLS = (("paper-8srv", 8, 0.1), ("paper-12srv", 12, 0.15))
 
@@ -1906,8 +1934,8 @@ def act_event_latency(dev, ecfg, policy, params, batch, iters, seed=6):
 
 
 # ------------------------------------------------- phases 19-20 (items 7, 8, 14)
-# the dense archs phase 20 serves (by env model id): the port's zoo builds
-# them at full width; the reference's ASSIGNED_ARCHS wait for item 13
+# the dense archs phase 20 serves (by env model id) at full width: three
+# copies of each fit the card beside each other
 SERVE_ARCHS = ("tinyllama-1.1b", "qwen2-1.5b", "llama3.2-3b")
 
 
@@ -2209,11 +2237,24 @@ def phase_facade(dev, card, actor, distilled, ppo_params, B=256,
     return launches
 
 
+def prefill_launches(cfg):
+    """{kernel: launches} of one prefill of `cfg`, chunked or not: one
+    flash_attention per attention layer (the encoder-decoder: per encoder
+    layer and per decoder self- and cross-attention) and one ssm_scan per
+    Mamba layer."""
+    from repro_torch.models.lm import n_periods, period_spec
+    if cfg.family == "audio":
+        return {"flash_attention": cfg.encoder_layers + 2 * cfg.num_layers,
+                "ssm_scan": 0}
+    spec = period_spec(cfg)
+    return {name: n_periods(cfg) * sum(m == kind for m, _ in spec)
+            for name, kind in (("flash_attention", "attn"),
+                               ("ssm_scan", "mamba"))}
+
+
 def _attn_layers(arch):
     from repro_torch.common.config import get_config
-    from repro_torch.models.lm import n_periods, period_spec
-    cfg = get_config(arch)
-    return n_periods(cfg) * sum(m == "attn" for m, _ in period_spec(cfg))
+    return prefill_launches(get_config(arch))["flash_attention"]
 
 
 def _task_rows(events):
@@ -2584,7 +2625,8 @@ def _compare_served(ex, arch, params, req, phase):
     assert err <= LOGIT_RTOL * scale, (req.rid, err, scale)
     toks_ref = ex.generate(arch, params, req.prompt, req.patches, req.steps,
                            req.max_new_tokens, impl="ref")
-    row = {"rid": req.rid, "c": req.patches, "prompt": len(req.prompt),
+    row = {"arch": arch, "rid": req.rid, "c": req.patches,
+           "prompt": len(req.prompt),
            "steps": req.steps, "max_abs_logit_err": err,
            "max_abs_logit": scale, "tol": LOGIT_RTOL * scale,
            "tokens_equal": bool(np.array_equal(req.tokens, toks_ref))}
@@ -2611,9 +2653,9 @@ def phase_serve(dev, card, actor, *, phase, arch, num_servers, rate,
     reaches them, every decision from the EAT actor `actor` (sampler
     "ddpm") on engine.observe(), every launch count set to 0 just before;
     weight loads, prefill and decode are timed on the synchronised host
-    clock. The launch counts must be what `period_spec` gives: one
-    flash_attention launch per attention layer and one ssm_scan launch per
-    Mamba layer of each served prefill, one chain launch per decision.
+    clock. The launch counts must be `prefill_launches` of each served
+    prefill (one flash_attention launch per attention layer, one ssm_scan
+    launch per Mamba layer) and one chain launch per decision.
     `n_compare` served requests (the first of each new c where the
     prefill is chunked, since c then changes its shapes, else the first of
     each prompt length a quarter of prompt_max from those compared) are
@@ -2627,7 +2669,6 @@ def phase_serve(dev, card, actor, *, phase, arch, num_servers, rate,
     from repro_torch.common.pytree import param_count
     from repro_torch.core import agent as AG
     from repro_torch.core.workload import TraceConfig, make_trace
-    from repro_torch.models.lm import n_periods, period_spec
     from repro_torch.serving import Request, ServingEngine
     from repro_torch.serving.executor import chunkable
     from repro_torch.telemetry.trace import NULL_TRACER
@@ -2719,12 +2760,10 @@ def phase_serve(dev, card, actor, *, phase, arch, num_servers, rate,
         assert r.tokens is not None and len(r.tokens) == r.steps
         assert ((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all()
     assert len(compared) == n_compare, [len(r.prompt) for r in compared]
-    spec = period_spec(cfg)
-    per_prefill = {kind: n_periods(cfg) * sum(m == kind for m, _ in spec)
-                   for kind in ("attn", "mamba")}
+    per_prefill = prefill_launches(cfg)
     want = {"env_step": 0, "denoiser_step": 0, "denoiser_chain": decisions,
-            "flash_attention": per_prefill["attn"] * served,
-            "ssm_scan": per_prefill["mamba"] * served}
+            "flash_attention": per_prefill["flash_attention"] * served,
+            "ssm_scan": per_prefill["ssm_scan"] * served}
     assert counts == want, (counts, want)
     qos = eng.qos_summary()
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
@@ -2774,10 +2813,12 @@ def register_jamba_cut():
 
 def phase_serve_jamba(dev, card, actor=None, **kw):
     """Phase 14, cell serve-jamba8l-4srv: JAMBA_CUT at full width on 4
-    servers, the first 16 tasks of a trace at 0.05 tasks/s (paper-8srv's
-    rate per server, c in {1, 2, 4}), decisions from an EAT actor with
-    seeded random weights for 4 servers (`actor=None`); two requests of
-    different prompt length held to the plain scan and attention."""
+    servers (without experts: four copies of the period with its experts,
+    49.4 GiB each, do not fit the card), the first 16 tasks of a trace at
+    0.05 tasks/s (paper-8srv's rate per server, c in {1, 2, 4}), decisions
+    from an EAT actor with seeded random weights for 4 servers
+    (`actor=None`); two requests of different prompt length held to the
+    plain scan and attention."""
     from repro_torch.core import agent as AG
     register_jamba_cut()
     if actor is None:
@@ -2786,6 +2827,182 @@ def phase_serve_jamba(dev, card, actor=None, **kw):
             generator=torch.Generator(device=dev).manual_seed(14), device=dev)
     return phase_serve(dev, card, actor, phase=14, arch=JAMBA_CUT,
                        num_servers=4, rate=0.05, n_compare=2, **kw)
+
+
+# --------------------------------------------- phase 21 (item 13, serving)
+OLMOE = "olmoe-1b-7b"
+# phase 21c's config: one period of Jamba with its experts (MoE FFNs on
+# layers 1, 3, 5 and 7), registered in the port's registry at run time
+JAMBA_PERIOD = "jamba-v0.1-52b-8l"
+ZOO_FULL = ("whisper-small", "internvl2-1b", "xlstm-125m", JAMBA_PERIOD)
+ZOO_PROMPTS = (256, 1024)
+
+
+def _held_request(arch, prompt, c, steps, max_new_tokens, tokens, rid):
+    """A served generate call as a `Request` for `_compare_served`."""
+    from repro_torch.serving import Request
+    req = Request(rid=rid, arch=arch, prompt=np.asarray(prompt), patches=c,
+                  arrive_t=0.0, max_new_tokens=max_new_tokens)
+    req.steps, req.tokens = steps, tokens
+    return req
+
+
+def phase_serve_default(dev, card, actor, acfg=None, rate=0.05, seed=21):
+    """Phase 21a: the serving backend at its default, `ExecSpec(backend=
+    "serving")` with no `serving_archs` (the reference's ASSIGNED_ARCHS,
+    reduced widths), through `api.evaluate_batch` on one trace of an
+    8-server env with ten models (K = 32, `rate` tasks/s), task i carrying
+    model id i % 10 (set on the numpy trace), EAT (`actor`, ddpm)
+    deciding until every task is resolved. Every arch is served; each
+    arch's first served request is held to the plain attention and scan on
+    the card as it is served (launches and time left out); the
+    flash_attention and ssm_scan launches are `prefill_launches` of each
+    executed prefill. Returns launches."""
+    from repro_torch import api
+    from repro_torch.common.config import ASSIGNED_ARCHS, get_config
+    from repro_torch.core import agent as AG
+    from repro_torch.serving.executor import ModelExecutor
+    acfg = acfg or AG.AgentConfig()
+    n = len(ASSIGNED_ARCHS)
+    # the episode ends when every task is resolved (or at 1024 decisions),
+    # not at the cell's 1024 s, so each model id's tasks are all served
+    ecfg = dataclasses.replace(cell_env(8), num_models=n, time_limit=1e5)
+    tr = np_traces(np.random.default_rng(seed), 1, ecfg.max_tasks, 8, n,
+                   False, rate=rate)
+    tr["model"][0] = np.arange(ecfg.max_tasks) % n
+    traces = {k: torch.from_numpy(v).to(dev) for k, v in tr.items()}
+    served, compare_s = {}, []
+    plain_generate = ModelExecutor.generate
+
+    def generate(ex, arch, params, prompt, c, steps, max_new_tokens=16,
+                 **kw):
+        tokens = plain_generate(ex, arch, params, prompt, c, steps,
+                                max_new_tokens, **kw)
+        if kw.get("impl", "auto") != "auto":     # the comparison's own
+            return tokens
+        served[arch] = served.get(arch, 0) + 1
+        if served[arch] == 1:
+            sync(dev)
+            t = time.perf_counter()
+            with uncounted():
+                _compare_served(ex, arch, params, _held_request(
+                    arch, prompt, c, steps, max_new_tokens, tokens,
+                    len(served) - 1), "21a")
+            sync(dev)
+            compare_s.append(time.perf_counter() - t)
+        return tokens
+    ModelExecutor.generate = generate
+    try:
+        metrics, counts, secs = _run_counted(dev, lambda: api.evaluate_batch(
+            ecfg, traces, api.PolicySpec("eat", params=actor,
+                                         options={"acfg": acfg}),
+            torch.Generator(device=dev).manual_seed(seed),
+            exec_spec=api.ExecSpec(backend="serving"), device=dev))
+    finally:
+        ModelExecutor.generate = plain_generate
+    assert sorted(served) == sorted(ASSIGNED_ARCHS), (served, metrics)
+    want = {}
+    for arch, n in served.items():
+        for name, per in prefill_launches(get_config(arch).reduced()).items():
+            want[name] = want.get(name, 0) + n * per
+    if dev.type == "cuda":
+        for name in ("flash_attention", "ssm_scan"):
+            assert counts[name] == want[name], (name, counts, want)
+        # one env_step a decision until the episode is done, one chain a
+        # decision of the policy
+        assert counts["denoiser_chain"] >= counts["env_step"] >= int(
+            metrics["episode_len"][0]) > 0, (counts, metrics)
+    log("phase 21a serving default archs " + json.dumps({
+        "card": card, "archs": list(ASSIGNED_ARCHS), "reduced": True,
+        "servers": 8, "trace_rate": rate, "run_s": secs - sum(compare_s),
+        "compare_s": sum(compare_s), "prefills_per_arch": served,
+        "launches": {k: v for k, v in counts.items() if v},
+        "prefill_launches_want": want,
+        "metrics": {k: float(v[0]) for k, v in metrics.items()}}))
+    return counts
+
+
+def phase_serve_olmoe(dev, card, actor=None, **kw):
+    """Phase 21b, cell serve-olmoe-2srv: olmoe-1b-7b at full width (fp32)
+    on 2 servers, the first 16 tasks of a trace at 0.025 tasks/s (the
+    paper's 0.0125 a server, gangs of 1 or 2), decisions from an EAT actor
+    with seeded random weights for 2 servers (`actor=None`); two requests
+    of different c held to the plain attention. At most two weight copies
+    (25.8 GiB each) are resident."""
+    from repro_torch.core import agent as AG
+    if actor is None:
+        actor = AG.init_actor(
+            cell_env(2), AG.AgentConfig(),
+            generator=torch.Generator(device=dev).manual_seed(22), device=dev)
+    return phase_serve(dev, card, actor, phase="21b", arch=OLMOE,
+                       num_servers=2, rate=0.025, n_compare=2, **kw)
+
+
+def register_jamba_period():
+    """Register JAMBA_PERIOD in the port's registry: jamba-v0.1-52b with
+    its depth cut to one period (8 layers), experts kept."""
+    from repro_torch.common.config import get_config, register
+    register(JAMBA_PERIOD)(lambda: dataclasses.replace(
+        get_config("jamba-v0.1-52b"), name=JAMBA_PERIOD, num_layers=8))
+
+
+def phase_zoo(dev, card, archs=ZOO_FULL, prompts=ZOO_PROMPTS, steps=16,
+              reduced=False, seed=23):
+    """Phase 21c: each remaining family at full width through
+    `ModelExecutor.generate`, one weight copy at a time (the last one gone
+    before the next load): per prompt length the load, prefill and decode
+    ms on the synchronised host clock, the launches of its prefill against
+    `prefill_launches`, and the request held to the plain attention and
+    scan (those launches and that time left out). `reduced` shrinks it for
+    a rehearsal on the CPU. Returns launches."""
+    from repro_torch.common.pytree import param_count
+    from repro_torch.serving.executor import ModelExecutor
+    register_jamba_period()
+    timer = SyncTimer(dev)
+    ex = ModelExecutor(reduced=reduced, tracer=timer, device=dev)
+    rng = np.random.default_rng(seed)
+    launches = {}
+    for arch in archs:
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        sync(dev)
+        t = time.perf_counter()
+        params = ex.init_params(arch, torch.Generator(
+            device=dev).manual_seed(seed))
+        sync(dev)
+        load_s = time.perf_counter() - t
+        cfg = ex.model(arch).cfg
+        want = prefill_launches(cfg)
+        rows = []
+        for i, plen in enumerate(prompts):
+            prompt = rng.integers(0, cfg.vocab_size, plen)
+            timer.spans.clear()
+            reset_counts()
+            tokens = ex.generate(arch, params, prompt, 1, steps, 16)
+            counts = read_counts()
+            add_counts(launches, counts)
+            if dev.type == "cuda":
+                got = {k: counts[k] for k in want}
+                assert got == want, (arch, got, want)
+            (_, _, pre_s), (_, _, dec_s) = timer.spans[-2:]
+            with uncounted():
+                _compare_served(ex, arch, params, _held_request(
+                    arch, prompt, 1, steps, 16, tokens, i), "21c")
+            rows.append({"prompt": plen, "prefill_ms": 1e3 * pre_s,
+                         "decode_ms_per_token": 1e3 * dec_s / steps,
+                         "launches": {k: v for k, v in counts.items() if v}})
+        peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                if dev.type == "cuda" else None)
+        log("phase 21c zoo " + json.dumps({
+            "card": card, "arch": arch, "family": cfg.family,
+            "params": param_count(params), "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "load_ms": 1e3 * load_s,
+            "prefill_launches_want": want, "per_prompt": rows,
+            "peak_device_gib": peak}))
+        del params
+    return launches
 
 
 def _sdpa_call(q, k, v):
@@ -3130,6 +3347,17 @@ def main():
     errs["ssm_scan"], ssm_timing = phase_ssm(dev)
     serve(14, phase_serve_jamba, None)
     log(f"phases 13-14 took {time.perf_counter() - t0:.3f} s")
+    gc.collect()              # phase 14's weights are gone before phase
+    torch.cuda.empty_cache()  # 21's largest copies load
+    t0 = time.perf_counter()
+    add_counts(launches, phase_serve_default(dev, card, ts.actor))
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve("21b", phase_serve_olmoe, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    add_counts(launches, phase_zoo(dev, card))
+    log(f"phase 21 took {time.perf_counter() - t0:.3f} s")
     for name in KERNELS:
         assert launches.get(name, 0) > 0, (name, launches)
     rows = measure(env_timing, chain_timing, step_timing, flash_timing,

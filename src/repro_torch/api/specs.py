@@ -146,9 +146,8 @@ class ExecSpec:
       observations (the sim-to-real loop).
 
     Serving knobs (`serving_*`) are ignored by the simulated backends.
-    `serving_archs=()` resolves to `common.config.ASSIGNED_ARCHS`, most of
-    which the port's model zoo cannot build yet (ROADMAP Queue 1 item 13),
-    so name ported archs; `serving_execute=False` skips real model execution (pure-mirror mode
+    `serving_archs=()` resolves to `common.config.ASSIGNED_ARCHS` (all ten
+    families); `serving_execute=False` skips real model execution (pure-mirror mode
     for fast parity checks — pool economics still accrue).
 
     ``faults`` turns on deterministic fault injection

@@ -1,6 +1,6 @@
-"""The attention and Mamba blocks with train, prefill and decode paths
-(port of `repro/models/blocks.py`, those two blocks; cross-attention, MoE,
-mLSTM and sLSTM are ROADMAP Queue 1 item 13).
+"""Transformer / SSM / MoE building blocks with train, prefill and decode
+paths (port of `repro/models/blocks.py`: attention, cross-attention, the
+MoE FFN, Mamba, mLSTM and sLSTM).
 
     init_<blk>(generator, cfg, ...)           -> params subtree
     <blk>_train(p, cfg, x, ...)               -> y            (full sequence)
@@ -18,18 +18,19 @@ saves the copy of a whole cache per layer and token).
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
 import torch.nn.functional as F
 
-from repro_torch.common.config import ArchConfig, SSMConfig
+from repro_torch.common.config import ArchConfig, MoEConfig, SSMConfig
 from repro_torch.common.pytree import normal_init
 from repro_torch.kernels.flash_attention import ops as FA
 from repro_torch.kernels.ssm_scan import ops as SS
 from repro_torch.models import attention as attn_lib
-from repro_torch.models.layers import apply_rope, init_linear, linear, softplus
+from repro_torch.models.layers import (apply_rope, init_linear, linear,
+                                       log_sigmoid, softplus)
 
 
 def init_attn(generator, cfg: ArchConfig, *, lead=(), device=None):
@@ -115,6 +116,106 @@ def attn_decode(p, cfg: ArchConfig, x, cache: Dict, pos: int, *,
     o = attn_lib.decode_attention(q, cache["k"], cache["v"], pos + 1,
                                   window=window, ring=ring)
     return linear(p["wo"], o.reshape(b, 1, -1)), cache
+
+
+# cross attention (whisper decoder): KV from the encoder output, computed once
+def init_cross_attn(generator, cfg: ArchConfig, *, lead=(), device=None):
+    return init_attn(generator, cfg, lead=lead, device=device)
+
+
+def cross_attn_kv(p, cfg: ArchConfig, enc_out):
+    b, t, _ = enc_out.shape
+    hd = cfg.resolved_head_dim
+    k = linear(p["wk"], enc_out).reshape(b, t, cfg.num_kv_heads, hd)
+    v = linear(p["wv"], enc_out).reshape(b, t, cfg.num_kv_heads, hd)
+    return {"k": k, "v": v}
+
+
+def cross_attn_apply(p, cfg: ArchConfig, x, kv: Dict, *, impl: str = "auto"):
+    """Every query against every encoder position (no mask, no RoPE)."""
+    b, s, _ = x.shape
+    q = linear(p["wq"], x).reshape(b, s, cfg.num_heads, cfg.resolved_head_dim)
+    o = FA.attention(q, kv["k"].to(x.dtype), kv["v"].to(x.dtype),
+                     causal=False, impl=impl)
+    return linear(p["wo"], o.reshape(b, s, -1))
+
+
+# ======================================================================
+# mixture-of-experts FFN (top-k routing, the routed experts only)
+def init_moe(generator, cfg: ArchConfig, mcfg: MoEConfig, *, lead=(),
+             device=None):
+    """router (d, E), gate and up (E, d, f), down (E, f, d), with the
+    reference's stddevs, drawn in its order."""
+    lead = tuple(lead)
+    d, e, f = cfg.d_model, mcfg.num_experts, mcfg.expert_d_ff
+    router = init_linear(generator, d, e, stddev=0.02, lead=lead,
+                         device=device)
+    gate = normal_init(generator, lead + (e, d, f), stddev=1 / math.sqrt(d),
+                       device=device)
+    up = normal_init(generator, lead + (e, d, f), stddev=1 / math.sqrt(d),
+                     device=device)
+    down = normal_init(generator, lead + (e, f, d),
+                       stddev=1 / math.sqrt(f) / math.sqrt(2 * cfg.num_layers),
+                       device=device)
+    return {"router": router, "gate": gate, "up": up, "down": down}
+
+
+def moe_apply(p, cfg: ArchConfig, mcfg: MoEConfig, x,
+              capacity_factor: float = 1.25,
+              dropless: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (y, aux_loss), the reference's function.
+
+    Routing as the reference: router logits in fp32, softmax, top-k,
+    weights renormalised by max(sum, 1e-9), the Switch aux loss over all
+    tokens. Each batch row is a routing group: an assignment's slot in its
+    expert is its rank among the row's (S·k) token-major assignments to
+    that expert, and capacity dispatch (cap = ceil(S·k/E·cf), at most S)
+    drops the assignments whose slot is at or past cap; `dropless` sets
+    cap = S, which drops none. Where the reference fills an (E, cap, d)
+    buffer per row and multiplies every slot, the port sorts the
+    assignments by expert and multiplies each expert's rows only (its
+    empty slots add nothing to the reference's combine), so an expert no
+    token chose is never read. The k-combine is the reference's: (S, k, d)
+    times the kept weights, summed over k. One device-to-host copy per
+    call (the experts' row counts)."""
+    b, s, d = x.shape
+    e, k = mcfg.num_experts, mcfg.experts_per_token
+    cap = s if dropless else max(1, min(s, int(math.ceil(
+        s * k / e * capacity_factor))))
+    logits = linear(p["router"], x).to(torch.float32)           # (B, S, E)
+    probs = torch.softmax(logits, dim=-1)
+    topw, topi = torch.topk(probs, k, dim=-1)                   # (B, S, k)
+    topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+    # load-balance auxiliary loss (Switch-style, over all tokens)
+    me = probs.mean(dim=(0, 1))
+    ce = torch.bincount(topi.reshape(-1), minlength=e).to(torch.float32) / (
+        b * s * k)
+    aux = e * torch.sum(me * ce) * mcfg.aux_loss_coef
+
+    n = b * s * k
+    row = torch.arange(b, device=x.device).repeat_interleave(s * k)
+    flat_e = topi.reshape(-1)                                   # row, token, k
+    group = flat_e * b + row                                    # expert, row
+    order = torch.argsort(group, stable=True)
+    counts = torch.bincount(group, minlength=e * b)
+    starts = torch.cumsum(counts, 0) - counts
+    slot = torch.empty_like(group)
+    slot[order] = torch.arange(n, device=x.device) - starts[group[order]]
+    w = topw.reshape(-1) * (slot < cap)                         # kept weights
+    xs = x.reshape(b * s, d)[(order // (s * k)) * s + (order % (s * k)) // k]
+    ys = torch.empty_like(xs)
+    hi = 0
+    for ei, cnt in enumerate(counts.reshape(e, b).sum(1).tolist()):
+        lo, hi = hi, hi + cnt
+        if cnt:
+            h = xs[lo:hi]
+            g = F.silu(h @ p["gate"][ei].to(x.dtype)) * (
+                h @ p["up"][ei].to(x.dtype))
+            ys[lo:hi] = g @ p["down"][ei].to(x.dtype)
+    out = torch.empty_like(ys)
+    out[order] = ys
+    y = (out.reshape(b, s, k, d) * w.to(x.dtype).reshape(b, s, k, 1)).sum(2)
+    return y, aux
 
 
 # ======================================================================
@@ -255,3 +356,160 @@ def mamba_decode(p, cfg: ArchConfig, scfg: SSMConfig, x, cache: Dict):
     cache["conv"].copy_(conv_buf[:, 1:])
     cache["ssm"].copy_(h)
     return linear(p["out_proj"], y), cache
+
+
+# ======================================================================
+# xLSTM blocks (mLSTM: matrix memory; sLSTM: scalar memory w/ recurrence)
+def _xlstm_dims(cfg: ArchConfig, scfg: SSMConfig):
+    inner = scfg.expand * cfg.d_model
+    return inner, scfg.mlstm_heads, inner // scfg.mlstm_heads
+
+
+def init_mlstm(generator, cfg: ArchConfig, scfg: SSMConfig, *, lead=(),
+               device=None):
+    d = cfg.d_model
+    inner, nh, _ = _xlstm_dims(cfg, scfg)
+    kw = dict(lead=lead, device=device)
+    return {
+        "up": init_linear(generator, d, 2 * inner, **kw),
+        "wq": init_linear(generator, inner, inner, **kw),
+        "wk": init_linear(generator, inner, inner, **kw),
+        "wv": init_linear(generator, inner, inner, **kw),
+        "w_if": init_linear(generator, inner, 2 * nh, bias=True, **kw),
+        "down": init_linear(generator, inner, d,
+                            stddev=0.02 / math.sqrt(2 * cfg.num_layers), **kw),
+    }
+
+
+def init_mlstm_cache(cfg: ArchConfig, scfg: SSMConfig, batch: int, *,
+                     lead=(), device=None):
+    """C (B, nh, dh, dh), n (B, nh, dh) zeros and the stabiliser m at
+    -1e30, all fp32 (the reference's initial state)."""
+    _, nh, dh = _xlstm_dims(cfg, scfg)
+    lead, f32 = tuple(lead) + (batch, nh), torch.float32
+    return {"C": torch.zeros(lead + (dh, dh), dtype=f32, device=device),
+            "n": torch.zeros(lead + (dh,), dtype=f32, device=device),
+            "m": torch.full(lead, -1e30, dtype=f32, device=device)}
+
+
+def _mlstm_qkvif(p, scfg: SSMConfig, x):
+    b, s, _ = x.shape
+    nh = scfg.mlstm_heads
+    f32 = torch.float32
+    xi, z = torch.chunk(linear(p["up"], x), 2, dim=-1)
+    dh = xi.shape[-1] // nh
+    q = linear(p["wq"], xi).reshape(b, s, nh, dh).to(f32) / math.sqrt(dh)
+    k = linear(p["wk"], xi).reshape(b, s, nh, dh).to(f32)
+    v = linear(p["wv"], xi).reshape(b, s, nh, dh).to(f32)
+    igate, fgate = torch.chunk(linear(p["w_if"], xi).to(f32), 2, dim=-1)
+    return (q, k, v, igate, log_sigmoid(fgate)), z
+
+
+def _mlstm_scan(qkvif, cache: Dict):
+    """The stabilised mLSTM recurrence, one step per position, from the
+    cache's state; writes the final C, n, m into the cache. The reference
+    pads S to 64-step chunks whose padded steps leave the state as it is,
+    so a plain loop over the S real steps reaches the same state. Returns
+    h (B, S, nh, dh)."""
+    q, k, v, igate, fgate = qkvif
+    C, nvec, m = cache["C"], cache["n"], cache["m"]
+    hs = []
+    for t in range(q.shape[1]):
+        qt, kt, vt, it, ft = q[:, t], k[:, t], v[:, t], igate[:, t], fgate[:, t]
+        m_new = torch.maximum(ft + m, it)
+        i_p = torch.exp(it - m_new)
+        f_p = torch.exp(ft + m - m_new)
+        C = f_p[..., None, None] * C + i_p[..., None, None] * (
+            vt[..., :, None] * kt[..., None, :])               # (B,nh,dh,dh)
+        nvec = f_p[..., None] * nvec + i_p[..., None] * kt
+        m = m_new
+        num = torch.einsum("bhij,bhj->bhi", C, qt)
+        den = torch.clamp(torch.abs(torch.einsum("bhj,bhj->bh", nvec, qt)),
+                          min=1.0)
+        hs.append(num / den[..., None])
+    cache["C"].copy_(C)
+    cache["n"].copy_(nvec)
+    cache["m"].copy_(m)
+    return torch.stack(hs, dim=1)
+
+
+def mlstm_prefill(p, cfg: ArchConfig, scfg: SSMConfig, x, cache: Dict):
+    qkvif, z = _mlstm_qkvif(p, scfg, x)
+    hs = _mlstm_scan(qkvif, cache)                             # (B,S,nh,dh)
+    b, s = x.shape[:2]
+    y = hs.reshape(b, s, -1).to(x.dtype) * F.silu(z)
+    return linear(p["down"], y), cache
+
+
+def mlstm_train(p, cfg: ArchConfig, scfg: SSMConfig, x):
+    cache = init_mlstm_cache(cfg, scfg, x.shape[0], device=x.device)
+    return mlstm_prefill(p, cfg, scfg, x, cache)[0]
+
+
+def mlstm_decode(p, cfg: ArchConfig, scfg: SSMConfig, x, cache: Dict):
+    return mlstm_prefill(p, cfg, scfg, x, cache)
+
+
+def init_slstm(generator, cfg: ArchConfig, scfg: SSMConfig, *, lead=(),
+               device=None):
+    d = cfg.d_model
+    inner, nh, dh = _xlstm_dims(cfg, scfg)
+    kw = dict(lead=lead, device=device)
+    up = init_linear(generator, d, inner, **kw)
+    w_gates = init_linear(generator, inner, 4 * inner, bias=True, **kw)
+    r_gates = normal_init(generator, tuple(lead) + (nh, dh, 4 * dh),
+                          stddev=1 / math.sqrt(dh), device=device)
+    return {"up": up, "w_gates": w_gates, "r_gates": r_gates,
+            "down": init_linear(generator, inner, d,
+                                stddev=0.02 / math.sqrt(2 * cfg.num_layers),
+                                **kw)}
+
+
+def init_slstm_cache(cfg: ArchConfig, scfg: SSMConfig, batch: int, *,
+                     lead=(), device=None):
+    """c, n, h zeros and the stabiliser m at -1e30, (B, nh, dh) fp32."""
+    _, nh, dh = _xlstm_dims(cfg, scfg)
+    shp, f32 = tuple(lead) + (batch, nh, dh), torch.float32
+    return {"c": torch.zeros(shp, dtype=f32, device=device),
+            "n": torch.zeros(shp, dtype=f32, device=device),
+            "h": torch.zeros(shp, dtype=f32, device=device),
+            "m": torch.full(shp, -1e30, dtype=f32, device=device)}
+
+
+def slstm_prefill(p, cfg: ArchConfig, scfg: SSMConfig, x, cache: Dict):
+    """The sLSTM recurrence, one step per position, from the cache's state;
+    writes the final c, n, h, m into the cache."""
+    b, s, _ = x.shape
+    inner, nh, dh = _xlstm_dims(cfg, scfg)
+    xi = linear(p["up"], x)
+    wx = linear(p["w_gates"], xi).reshape(b, s, nh, 4 * dh).to(torch.float32)
+    rk = p["r_gates"].to(torch.float32)
+    c, n, h, m = cache["c"], cache["n"], cache["h"], cache["m"]
+    hs = []
+    for t in range(s):
+        rec = torch.einsum("bhj,hjk->bhk", h, rk)              # (B,nh,4dh)
+        zt, it, ft, ot = torch.chunk(wx[:, t] + rec, 4, dim=-1)
+        zt = torch.tanh(zt)
+        ot = torch.sigmoid(ot)
+        ft = log_sigmoid(ft)
+        m_new = torch.maximum(ft + m, it)
+        i_p = torch.exp(it - m_new)
+        f_p = torch.exp(ft + m - m_new)
+        c = f_p * c + i_p * zt
+        n = f_p * n + i_p
+        h = ot * c / torch.clamp(n, min=1.0)
+        m = m_new
+        hs.append(h)
+    for key, val in (("c", c), ("n", n), ("h", h), ("m", m)):
+        cache[key].copy_(val)
+    y = torch.stack(hs, dim=1).reshape(b, s, inner).to(x.dtype)
+    return linear(p["down"], y), cache
+
+
+def slstm_train(p, cfg: ArchConfig, scfg: SSMConfig, x):
+    cache = init_slstm_cache(cfg, scfg, x.shape[0], device=x.device)
+    return slstm_prefill(p, cfg, scfg, x, cache)[0]
+
+
+def slstm_decode(p, cfg: ArchConfig, scfg: SSMConfig, x, cache: Dict):
+    return slstm_prefill(p, cfg, scfg, x, cache)

@@ -102,6 +102,11 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """log(sigmoid(x)) = -softplus(-x), as `jax.nn.log_sigmoid` is."""
+    return -softplus(-x)
+
+
 def mish(x: torch.Tensor) -> torch.Tensor:
     """x * tanh(softplus(x))."""
     return x * torch.tanh(softplus(x))

@@ -1,26 +1,30 @@
-"""Decoder-only LM: the dense attention, Mamba and Jamba-hybrid families
-with dense FFNs (port of `repro/models/lm.py`: `layer_pattern` "attn",
-"mamba" and "jamba"; MoE FFNs, xLSTM, the encoder-decoder and the modality
-frontends raise and are ROADMAP Queue 1 item 13).
+"""Unified decoder-only LM covering the dense, MoE, SSM, hybrid and VLM
+families (port of `repro/models/lm.py`: `layer_pattern` "attn", "jamba",
+"mamba" and "xlstm", dense or MoE FFNs, the vision frontend; `lm_loss`,
+the training loss, is ROADMAP Queue 1 item 13's training part).
 
 The layer stack is organised into *periods*, as in the reference: a period
 is the smallest repeating pattern of blocks (1 layer for a homogeneous
-stack, 8 for Jamba's 7 Mamba + 1 attention), the params of all periods are
-stacked along a leading axis (`periods`), and the forward pass loops over
-it in Python (the reference scans). Public API:
+stack, 8 for Jamba's 7 Mamba + 1 attention, 4 for xLSTM's 3 mLSTM + 1
+sLSTM), the params of all periods are stacked along a leading axis
+(`periods`), and the forward pass loops over it in Python (the reference
+scans). Public API:
 
     period_spec(cfg)                 -> ((mixer, ffn), ...) per layer in period
     init_lm(cfg, generator, dtype)   -> params
-    lm_logits(params, cfg, tokens)   -> ((B, S, padded_vocab), aux)
+    lm_logits(params, cfg, tokens, frontend=...)  -> ((B, S, padded_vocab), aux)
     init_cache(cfg, batch, cache_len, dtype)      -> cache
-    lm_prefill(params, cfg, tokens, cache)        -> (logits_last, cache)
+    lm_prefill(params, cfg, tokens, cache, frontend=...) -> (logits_last, cache)
     lm_decode(params, cfg, cache, token)          -> (logits, cache)
 
 A cache is {"periods": {"blk<i>_attn": {"k", "v"}, "blk<i>_mamba":
-{"conv", "ssm"}}, "pos": int}, each tensor stacked by period; prefill and
+{"conv", "ssm"}, "blk<i>_mlstm": {"C", "n", "m"}, "blk<i>_slstm": {"c",
+"n", "h", "m"}}, "pos": int}, each tensor stacked by period; prefill and
 decode write its tensors in place and return it with the new position. On
 the card a prefill launches the flash attention kernel once per attention
-layer and the selective-scan kernel once per Mamba layer.
+layer and the selective-scan kernel once per Mamba layer. `frontend`
+(VLM: (B, frontend_tokens, frontend_dim) patch embeddings) is projected
+and prepended to the token embeddings, so its positions count in `pos`.
 """
 from __future__ import annotations
 
@@ -36,36 +40,30 @@ from repro_torch.models import blocks as B
 from repro_torch.models.layers import (embed, ffn, init_embedding, init_ffn,
                                        init_rmsnorm, linear, rmsnorm)
 
+# what the port's model zoo does not do yet: training (`lm_loss`,
+# `encdec_loss`, `training/data.py`, `train_loop.py`)
 NOT_PORTED = "ROADMAP Queue 1 item 13"
-
-
-def _check_supported(cfg: ArchConfig) -> None:
-    why = []
-    if cfg.family == "audio" or cfg.cross_attention:
-        why.append("the encoder-decoder family")
-    if cfg.layer_pattern not in ("attn", "mamba", "jamba"):
-        why.append(f"layer_pattern {cfg.layer_pattern!r}")
-    if cfg.moe is not None:
-        why.append("MoE FFNs")
-    if cfg.frontend != "none":
-        why.append(f"the {cfg.frontend} frontend")
-    if why:
-        raise ValueError(
-            f"{cfg.name}: {', '.join(why)} not ported yet ({NOT_PORTED}); "
-            "the port's LM covers layer_pattern 'attn', 'mamba' and 'jamba' "
-            "with dense FFNs")
 
 
 # ----------------------------------------------------------------------
 def period_spec(cfg: ArchConfig) -> Tuple[Tuple[str, str], ...]:
     """Per-layer (mixer, ffn) pattern within one period."""
-    _check_supported(cfg)
+    if cfg.layer_pattern == "attn":
+        if cfg.moe is not None and cfg.moe.layer_period > 1:
+            lp = cfg.moe.layer_period
+            return tuple(("attn", "moe" if i % lp == lp - 1 else "dense")
+                         for i in range(lp))
+        return (("attn", "moe" if cfg.moe is not None else "dense"),)
     if cfg.layer_pattern == "jamba":
-        return tuple(("attn" if i == cfg.attn_period - 1 else "mamba", "dense")
+        return tuple(("attn" if i == cfg.attn_period - 1 else "mamba",
+                      "moe" if (i % 2 == 1 and cfg.moe is not None)
+                      else "dense")
                      for i in range(cfg.attn_period))
     if cfg.layer_pattern == "mamba":
         return (("mamba", "dense" if cfg.d_ff else "none"),)
-    return (("attn", "dense"),)
+    if cfg.layer_pattern == "xlstm":
+        return (("mlstm", "none"),) * 3 + (("slstm", "none"),)
+    raise ValueError(cfg.layer_pattern)
 
 
 def n_periods(cfg: ArchConfig) -> int:
@@ -86,24 +84,25 @@ def init_lm(cfg: ArchConfig, generator: torch.Generator,
     drawn from `generator` on `device` (`periods` leaves stacked along a
     leading axis of n_periods)."""
     dev = resolve_device(device)
-    lead = (n_periods(cfg),)
+    kw = dict(lead=(n_periods(cfg),), device=dev)
     d = cfg.d_model
     periods: Dict = {}
     for i, (mixer, f) in enumerate(period_spec(cfg)):
-        periods[f"norm{i}_mix"] = {"scale": torch.ones(lead + (d,),
+        periods[f"norm{i}_mix"] = {"scale": torch.ones(kw["lead"] + (d,),
                                                        device=dev)}
         if mixer == "attn":
-            periods[f"blk{i}_attn"] = B.init_attn(generator, cfg, lead=lead,
-                                                  device=dev)
-        else:
-            periods[f"blk{i}_mamba"] = B.init_mamba(generator, cfg, cfg.ssm,
-                                                    lead=lead, device=dev)
-        if f == "dense":
-            periods[f"norm{i}_ffn"] = {"scale": torch.ones(lead + (d,),
+            periods[f"blk{i}_attn"] = B.init_attn(generator, cfg, **kw)
+        else:         # init_mamba, init_mlstm, init_slstm
+            periods[f"blk{i}_{mixer}"] = getattr(B, f"init_{mixer}")(
+                generator, cfg, cfg.ssm, **kw)
+        if f != "none":
+            periods[f"norm{i}_ffn"] = {"scale": torch.ones(kw["lead"] + (d,),
                                                            device=dev)}
+        if f == "dense":
             periods[f"blk{i}_ffn"] = init_ffn(generator, d, cfg.d_ff,
-                                              cfg.activation, lead=lead,
-                                              device=dev)
+                                              cfg.activation, **kw)
+        elif f == "moe":
+            periods[f"blk{i}_moe"] = B.init_moe(generator, cfg, cfg.moe, **kw)
     params = {
         "embed": init_embedding(generator, cfg.padded_vocab, d, device=dev),
         "final_norm": init_rmsnorm(d, device=dev),
@@ -113,23 +112,48 @@ def init_lm(cfg: ArchConfig, generator: torch.Generator,
         params["lm_head"] = {"w": normal_init(
             generator, (d, cfg.padded_vocab), stddev=1 / math.sqrt(d),
             device=dev)}
+    if cfg.frontend != "none":
+        # projector from the stub frontend's embeddings into d_model
+        fd = cfg.frontend_dim or d
+        params["frontend_proj"] = {"w": normal_init(
+            generator, (fd, d), stddev=1 / math.sqrt(fd), device=dev)}
     if dtype != torch.float32:
         params = tree_map(lambda x: x.to(dtype), params)
     return params
 
 
 # ----------------------------------------------------------------------
-def _ffn_apply(pp, cfg: ArchConfig, i: int, f: str, x):
+def _mixer_train(pp, cfg: ArchConfig, i: int, mixer: str, h, impl: str):
+    p = pp[f"blk{i}_{mixer}"]
+    if mixer == "attn":
+        return B.attn_train(p, cfg, h, causal=True, window=cfg.sliding_window,
+                            impl=impl)
+    if mixer == "mamba":
+        return B.mamba_train(p, cfg, cfg.ssm, h, impl=impl)
+    if mixer == "mlstm":
+        return B.mlstm_train(p, cfg, cfg.ssm, h)
+    return B.slstm_train(p, cfg, cfg.ssm, h)
+
+
+def _ffn_apply(pp, cfg: ArchConfig, i: int, f: str, x, aux,
+               moe_dropless: bool):
     if f == "none":
-        return x
+        return x, aux
     h = rmsnorm(pp[f"norm{i}_ffn"], x, cfg.norm_eps)
-    return x + ffn(pp[f"blk{i}_ffn"], h, cfg.activation)
+    if f == "dense":
+        return x + ffn(pp[f"blk{i}_ffn"], h, cfg.activation), aux
+    y, moe_aux = B.moe_apply(pp[f"blk{i}_moe"], cfg, cfg.moe, h,
+                             dropless=moe_dropless)
+    return x + y, aux + moe_aux
 
 
-def _embed_tokens(params, cfg: ArchConfig, tokens, dtype):
+def _embed_tokens(params, cfg: ArchConfig, tokens, frontend, dtype):
     x = embed(params["embed"], tokens, dtype=dtype)
     if cfg.name.startswith("gemma"):
         x = x * math.sqrt(cfg.d_model)
+    if frontend is not None:
+        fe = frontend.to(dtype) @ params["frontend_proj"]["w"].to(dtype)
+        x = torch.cat([fe, x], dim=1)
     return x
 
 
@@ -148,22 +172,21 @@ def _head(params, cfg: ArchConfig, x):
 
 
 def lm_logits(params, cfg: ArchConfig, tokens, compute_dtype=torch.float32,
-              *, impl: str = "auto"):
-    """Full-sequence causal logits (the training forward) and the aux loss
-    (0 for dense FFNs)."""
-    x = _embed_tokens(params, cfg, tokens, compute_dtype)
+              *, frontend=None, impl: str = "auto",
+              moe_dropless: bool = False):
+    """Full-sequence causal logits (the training forward) and the summed
+    MoE aux loss (0 without MoE FFNs). `moe_dropless=True` gives the
+    slicing-invariant MoE forward that prefill and decode compute; the
+    default keeps the reference's capacity-dropped training dispatch."""
+    x = _embed_tokens(params, cfg, tokens, frontend, compute_dtype)
+    aux = torch.zeros((), device=x.device)
     for p in range(n_periods(cfg)):
         pp = _period(params["periods"], p)
         for i, (mixer, f) in enumerate(period_spec(cfg)):
             h = rmsnorm(pp[f"norm{i}_mix"], x, cfg.norm_eps)
-            if mixer == "attn":
-                y = B.attn_train(pp[f"blk{i}_attn"], cfg, h, causal=True,
-                                 window=cfg.sliding_window, impl=impl)
-            else:
-                y = B.mamba_train(pp[f"blk{i}_mamba"], cfg, cfg.ssm, h,
-                                  impl=impl)
-            x = _ffn_apply(pp, cfg, i, f, x + y)
-    return _head(params, cfg, x), torch.zeros((), device=x.device)
+            x = x + _mixer_train(pp, cfg, i, mixer, h, impl)
+            x, aux = _ffn_apply(pp, cfg, i, f, x, aux, moe_dropless)
+    return _head(params, cfg, x), aux
 
 
 # ----------------------------------------------------------------------
@@ -172,26 +195,31 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
                dtype=torch.bfloat16, *, device=None) -> Dict:
     """cache_len: attention KV capacity. With cfg.sliding_window > 0 and
     cache_len >= window, attention caches are rolling ``window``-sized
-    rings. Mamba caches hold the conv tail in `dtype` and the fp32 state."""
+    rings. Mamba caches hold the conv tail in `dtype` and the fp32 state;
+    mLSTM and sLSTM caches their fp32 states."""
     dev = resolve_device(device)
     attn_len = (min(cache_len, cfg.sliding_window) if cfg.sliding_window
                 else cache_len)
     kw = dict(lead=(n_periods(cfg),), device=dev)
     per: Dict = {}
     for i, (mixer, _f) in enumerate(period_spec(cfg)):
+        key = f"blk{i}_{mixer}"
         if mixer == "attn":
-            per[f"blk{i}_attn"] = B.init_attn_cache(cfg, batch, attn_len,
-                                                    dtype, **kw)
+            per[key] = B.init_attn_cache(cfg, batch, attn_len, dtype, **kw)
+        elif mixer == "mamba":
+            per[key] = B.init_mamba_cache(cfg, cfg.ssm, batch, dtype, **kw)
+        elif mixer == "mlstm":
+            per[key] = B.init_mlstm_cache(cfg, cfg.ssm, batch, **kw)
         else:
-            per[f"blk{i}_mamba"] = B.init_mamba_cache(cfg, cfg.ssm, batch,
-                                                      dtype, **kw)
+            per[key] = B.init_slstm_cache(cfg, cfg.ssm, batch, **kw)
     return {"periods": per, "pos": 0}
 
 
 def _run_cached(params, cfg: ArchConfig, x, cache, pos: int, *, decode: bool,
-                impl: str = "auto"):
+                impl: str = "auto", moe_dropless: bool = True):
     """Shared prefill/decode loop over periods. x: (B, S, d). Writes the
     cache's tensors in place and returns (x, cache["periods"])."""
+    aux = torch.zeros((), device=x.device)
     for p in range(n_periods(cfg)):
         pp = _period(params["periods"], p)
         pc = _period(cache["periods"], p)
@@ -204,32 +232,41 @@ def _run_cached(params, cfg: ArchConfig, x, cache, pos: int, *, decode: bool,
             elif mixer == "attn":
                 y, _ = B.attn_prefill(pp[key], cfg, h, pc[key],
                                       window=cfg.sliding_window, impl=impl)
-            elif decode:
+            elif mixer == "mamba" and decode:
                 y, _ = B.mamba_decode(pp[key], cfg, cfg.ssm, h, pc[key])
-            else:
+            elif mixer == "mamba":
                 y, _ = B.mamba_prefill(pp[key], cfg, cfg.ssm, h, pc[key],
                                        impl=impl)
-            x = _ffn_apply(pp, cfg, i, f, x + y)
+            elif mixer == "mlstm":
+                y, _ = B.mlstm_prefill(pp[key], cfg, cfg.ssm, h, pc[key])
+            else:
+                y, _ = B.slstm_prefill(pp[key], cfg, cfg.ssm, h, pc[key])
+            x, aux = _ffn_apply(pp, cfg, i, f, x + y, aux, moe_dropless)
     return x, cache["periods"]
 
 
 def lm_prefill(params, cfg: ArchConfig, tokens, cache,
-               compute_dtype=torch.bfloat16, *, impl: str = "auto"):
-    """Process the prompt; returns last-position logits + filled cache.
-    `impl` picks the prefill attention and scan: "auto" (the kernels on
-    the card, the plain versions on the CPU) or "ref" (the plain versions
-    anywhere)."""
-    x = _embed_tokens(params, cfg, tokens, compute_dtype)
+               compute_dtype=torch.bfloat16, *, frontend=None,
+               impl: str = "auto", moe_dropless: bool = True):
+    """Process the prompt (after the projected `frontend` embeddings, if
+    given); returns last-position logits + filled cache. `impl` picks the
+    prefill attention and scan: "auto" (the kernels on the card, the plain
+    versions on the CPU) or "ref" (the plain versions anywhere). MoE takes
+    the dropless dispatch by default, as the reference's prefill does
+    (consistent with decode)."""
+    x = _embed_tokens(params, cfg, tokens, frontend, compute_dtype)
+    s = x.shape[1]
     x, periods = _run_cached(params, cfg, x, cache, 0, decode=False,
-                             impl=impl)
+                             impl=impl, moe_dropless=moe_dropless)
     logits = _head(params, cfg, x[:, -1:])
-    return logits, {"periods": periods, "pos": int(tokens.shape[1])}
+    return logits, {"periods": periods, "pos": int(s)}
 
 
 def lm_decode(params, cfg: ArchConfig, cache, token,
-              compute_dtype=torch.bfloat16):
+              compute_dtype=torch.bfloat16, *, moe_dropless: bool = True):
     """token: (B, 1) -> (logits (B, 1, V), cache')."""
-    x = _embed_tokens(params, cfg, token, compute_dtype)
+    x = _embed_tokens(params, cfg, token, None, compute_dtype)
     pos = int(cache["pos"])
-    x, periods = _run_cached(params, cfg, x, cache, pos, decode=True)
+    x, periods = _run_cached(params, cfg, x, cache, pos, decode=True,
+                             moe_dropless=moe_dropless)
     return _head(params, cfg, x), {"periods": periods, "pos": pos + 1}

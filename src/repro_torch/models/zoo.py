@@ -1,23 +1,26 @@
-"""Model zoo: a uniform interface over the architecture families the port
-supports (port of `repro/models/zoo.py`, the decoder-only families with
-dense FFNs: dense attention, Mamba, and the Jamba hybrid of Mamba and
-attention layers; MoE FFNs, xLSTM, the audio encoder-decoder and the VLM
-frontend raise and are ROADMAP Queue 1 item 13).
+"""Model zoo: a uniform interface over every architecture family (port of
+`repro/models/zoo.py`, serving side: the decoder-only families through
+`models.lm` and the audio encoder-decoder through `models.encdec`).
 
     model = build_model(cfg)
     params = model.init(generator, dtype, device=...)
     cache = model.make_cache(batch, cache_len, dtype, device=...)
-    logits, cache = model.prefill(params, batch, cache)   # batch["tokens"]
+    logits, cache = model.prefill(params, batch, cache)
     logits, cache = model.decode(params, cache, token)
+
+``batch`` is a dict: tokens (+ frames for audio, image_embeds for vlm).
+`model.loss` raises: training through the zoo is ROADMAP Queue 1 item 13's
+training part.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
 from repro_torch.common.config import ArchConfig
+from repro_torch.models import encdec as ED
 from repro_torch.models import lm as LM
 
 
@@ -25,27 +28,60 @@ from repro_torch.models import lm as LM
 class Model:
     cfg: ArchConfig
     init: Callable[..., Any]
+    loss: Callable[..., Any]
     prefill: Callable[..., Any]
     decode: Callable[..., Any]
     make_cache: Callable[..., Any]
 
 
 def build_model(cfg: ArchConfig) -> Model:
-    LM.period_spec(cfg)               # raises for what is not ported
+    def loss(*_args, **_kw):
+        raise NotImplementedError(
+            f"{cfg.name}: training through the model zoo (lm_loss, "
+            f"encdec_loss) is not ported yet ({LM.NOT_PORTED})")
 
+    if cfg.family == "audio":
+        def init(generator, dtype=torch.float32, *, device=None):
+            return ED.init_encdec(cfg, generator, dtype, device=device)
+
+        def make_cache(batch_size, cache_len, dtype=torch.bfloat16, *,
+                       enc_len: Optional[int] = None, device=None):
+            return ED.init_encdec_cache(cfg, batch_size, cache_len,
+                                        enc_len or cfg.frontend_tokens,
+                                        dtype, device=device)
+
+        def prefill(params, batch: Dict, cache, compute_dtype=torch.bfloat16,
+                    *, impl: str = "auto"):
+            return ED.encdec_prefill(params, cfg, batch["frames"],
+                                     batch["tokens"], cache, compute_dtype,
+                                     impl=impl)
+
+        def decode(params, cache, token, compute_dtype=torch.bfloat16):
+            return ED.encdec_decode(params, cfg, cache, token, compute_dtype)
+
+        return Model(cfg, init, loss, prefill, decode, make_cache)
+
+    LM.n_periods(cfg)                 # raises for an unknown layer pattern
+
+    # decoder-only families (dense / moe / ssm / hybrid / vlm)
     def init(generator, dtype=torch.float32, *, device=None):
         return LM.init_lm(cfg, generator, dtype, device=device)
 
     def make_cache(batch_size, cache_len, dtype=torch.bfloat16, *,
                    device=None):
+        # the VLM prefill prepends the projected patch embeddings, so the
+        # KV cache holds frontend_tokens more positions
+        if cfg.frontend == "vision":
+            cache_len = cache_len + cfg.frontend_tokens
         return LM.init_cache(cfg, batch_size, cache_len, dtype, device=device)
 
     def prefill(params, batch: Dict, cache, compute_dtype=torch.bfloat16, *,
                 impl: str = "auto"):
+        frontend = batch["image_embeds"] if cfg.frontend == "vision" else None
         return LM.lm_prefill(params, cfg, batch["tokens"], cache,
-                             compute_dtype, impl=impl)
+                             compute_dtype, frontend=frontend, impl=impl)
 
     def decode(params, cache, token, compute_dtype=torch.bfloat16):
         return LM.lm_decode(params, cfg, cache, token, compute_dtype)
 
-    return Model(cfg, init, prefill, decode, make_cache)
+    return Model(cfg, init, loss, prefill, decode, make_cache)

@@ -151,10 +151,9 @@ def wall_patch(ecfg: EV.EnvConfig, trace: Dict, q_pre: EV.QueueView,
 
 
 def check_archs(archs, reduced: bool) -> None:
-    """Build every arch's model (no weights): one the port's zoo cannot
-    build raises its `models.lm.NOT_PORTED` message here, when the backend
-    is built, rather than at the first task — no other model is ever
-    substituted."""
+    """Build every arch's model (no weights): an unknown arch or layer
+    pattern raises here, when the backend is built, rather than at the
+    first task — no other model is ever substituted."""
     for arch in dict.fromkeys(archs):
         cfg = get_config(arch)
         build_model(cfg.reduced() if reduced else cfg)
@@ -168,9 +167,8 @@ class ServingRollout:
     cluster. `reset()` drops every loaded model (the Simulator calls it at
     the start of each `run`, so sweep policies never inherit a warm pool).
     `archs` names the model-zoo archs served (by env model id, cycled);
-    () is the reference's `ASSIGNED_ARCHS`, most of which the port cannot
-    build yet (ROADMAP Queue 1 item 13), so name ported archs. Every
-    tensor lives on `device` (None: the CUDA device).
+    () is the reference's `ASSIGNED_ARCHS`. Every tensor lives on `device`
+    (None: the CUDA device).
     """
 
     backend = "serving"

@@ -17,12 +17,15 @@ cross-patch attention (chunk-local RoPE positions). The per-chunk KV caches
 then merge back into one sequence-ordered cache (a reshape) that decode
 attends over. For ``c == 1`` the chunked path equals the unchunked one.
 Architectures whose caches are not pure attention KV (sliding-window
-rings, Mamba states) take the unchunked prefill.
+rings, Mamba and xLSTM states) and those with a frontend (audio, vision)
+take the unchunked prefill.
 
 On the card every prefill launches the hand-written kernels: flash
 attention once per attention layer (`kernels.flash_attention`) and the
 selective scan once per Mamba layer (`kernels.ssm_scan`), so a Jamba
-period's prefill launches `ssm_scan` 7 times and `flash_attention` once.
+period's prefill launches `ssm_scan` 7 times and `flash_attention` once,
+and a whisper prefill launches flash once per encoder layer and twice per
+decoder layer (self- and cross-attention).
 `impl="ref"` runs the plain attention and scan instead, which is how
 `chip_smoke.py` holds the served logits to them.
 """
@@ -155,6 +158,21 @@ class ModelExecutor:
             torch.cuda.synchronize(self.device)
         return time.perf_counter() - t_start
 
+    def _full_batch(self, cfg, prompt: np.ndarray) -> Dict:
+        """The unchunked prefill's batch: the prompt, and zero stub frontend
+        inputs as the reference passes them (VLM: (1, frontend_tokens,
+        frontend_dim) patch embeddings; audio: (1, frontend_tokens,
+        d_model) frames)."""
+        dev = self.device
+        batch = {"tokens": torch.from_numpy(prompt[None]).to(dev)}
+        if cfg.frontend == "vision":
+            batch["image_embeds"] = torch.zeros(
+                (1, cfg.frontend_tokens, cfg.frontend_dim), device=dev)
+        if cfg.family == "audio":
+            batch["frames"] = torch.zeros(
+                (1, cfg.frontend_tokens, cfg.d_model), device=dev)
+        return batch
+
     def prefill(self, arch: str, params, prompt, c: int, steps: int,
                 max_new_tokens: int = 16, *,
                 force_chunked: Optional[bool] = None, impl: str = "auto"):
@@ -186,9 +204,8 @@ class ModelExecutor:
             cache = _merge_chunk_cache(model, ccache, S_pad, capacity, dev)
             return logits[-1:], cache   # the last token ends chunk c-1
         cache = model.make_cache(1, capacity, dtype=f32, device=dev)
-        tokens = torch.from_numpy(prompt[None]).to(dev)
-        return model.prefill(params, {"tokens": tokens}, cache, f32,
-                             impl=impl)
+        return model.prefill(params, self._full_batch(model.cfg, prompt),
+                             cache, f32, impl=impl)
 
     def generate(self, arch: str, params, prompt, c: int, steps: int,
                  max_new_tokens: int = 16, *,

@@ -205,11 +205,15 @@ def test_refusals(case, tmp_path):
             _sim(api.WorkloadSpec.episodic(sc, batch=2),
                  placement=TPS(policy="forecast"))
     elif case == "arch_not_ported":
-        with pytest.raises(ValueError, match="ROADMAP Queue 1 item 13"):
-            api.rollout_fn_for(api.ExecSpec(backend="serving"))
-        with pytest.raises(ValueError, match="ROADMAP Queue 1 item 13"):
+        # every arch of the zoo is ported: the default (the reference's
+        # ASSIGNED_ARCHS) and olmoe build; an unknown arch is refused
+        fn = api.rollout_fn_for(api.ExecSpec(backend="serving"))
+        assert fn.backend == "serving"
+        api.rollout_fn_for(api.ExecSpec(backend="serving",
+                                        serving_archs=("olmoe-1b-7b",)))
+        with pytest.raises(KeyError, match="unknown arch"):
             api.rollout_fn_for(api.ExecSpec(
-                backend="serving", serving_archs=("olmoe-1b-7b",)))
+                backend="serving", serving_archs=("no-such-arch",)))
     elif case == "missing_checkpoint":
         with pytest.raises(FileNotFoundError, match="no checkpoint steps"):
             api.resolve(api.PolicySpec("ppo", checkpoint=str(tmp_path)),

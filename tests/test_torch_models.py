@@ -20,6 +20,7 @@ import torch
 from repro.common import config as JCFG
 from repro.kernels.flash_attention.ops import attention as pallas_attention
 from repro.models import attention as JATT
+from repro.models import encdec as JED
 from repro.models import lm as JLM
 from repro.serving import latency_table as JLT
 from repro_torch.common import config as TCFG
@@ -183,20 +184,38 @@ def test_configs_copy_the_reference():
         TCFG.get_config("no-such-arch")
 
 
+def _shape_tree(tree):
+    return {k: tuple(v.shape) for k, v in tree_paths(tree).items()}
+
+
 @pytest.mark.parametrize("name", ["jamba-v0.1-52b", "olmoe-1b-7b",
                                   "qwen3-moe-30b-a3b", "whisper-small",
                                   "internvl2-1b", "xlstm-125m",
                                   "jamba-v0.1-52b-full-width"])
 def test_build_model_refuses_what_is_not_ported(name):
-    """Every config with a part the port lacks raises naming the ROADMAP
-    item; Jamba (reduced, and at full width) raises for its MoE FFNs,
-    though its Mamba and attention layers are ported."""
+    """Every config builds (reduced, and Jamba at full width) with the
+    reference's period pattern, and its params tree has the reference's
+    paths and shapes (drawn on the meta device: shapes only, no weights);
+    what the zoo still refuses is training, naming the ROADMAP item."""
     full = name.endswith("-full-width")
-    cfg = TCFG.get_config(name.removesuffix("-full-width"))
-    with pytest.raises(ValueError, match="Queue 1 item 13") as err:
-        TZOO.build_model(cfg if full else cfg.reduced())
-    if cfg.moe is not None:
-        assert "MoE" in str(err.value)
+    jc = JCFG.get_config(name.removesuffix("-full-width"))
+    tc = TCFG.get_config(name.removesuffix("-full-width"))
+    if not full:
+        jc, tc = jc.reduced(), tc.reduced()
+    model = TZOO.build_model(tc)
+    jinit = JED.init_encdec if jc.family == "audio" else JLM.init_lm
+    want = _shape_tree(jax.eval_shape(lambda k: jinit(jc, k),
+                                      jax.random.PRNGKey(0)))
+    got = _shape_tree(model.init(torch.Generator(), device="meta"))
+    assert got == want
+    if jc.family != "audio":
+        assert TLM.period_spec(tc) == JLM.period_spec(jc)
+    if full and jc.layer_pattern == "jamba":
+        assert TLM.period_spec(tc) == tuple(
+            ("attn" if i == 7 else "mamba", "moe" if i % 2 else "dense")
+            for i in range(8))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+        model.loss(None, {})
 
 
 # ---------------------------------------------------------------- the LM

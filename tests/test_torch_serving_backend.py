@@ -16,7 +16,8 @@
   `_wall_patch_prog` on the same inputs; the fault-tolerant generate's
   ledger against the reference's on the same injected errors.
 * Real execution on reduced dense archs rides along without changing the
-  MDP; wall-clock mode patches measured seconds in; and the refusals.
+  MDP; wall-clock mode patches measured seconds in; the reference's
+  default arch list builds and serves whisper-small; and the refusals.
 """
 import jax
 import jax.numpy as jnp
@@ -29,6 +30,7 @@ from repro.core import rollout as JRO
 from repro.faults import FaultSpec as JFS
 from repro.serving import backend as JSB
 from repro_torch import api
+from repro_torch.common import config as TCFG
 from repro_torch.core import agent as TAG
 from repro_torch.core import env as TEV
 from repro_torch.core import rollout as TRO
@@ -374,11 +376,21 @@ def test_serving_refusals(case):
             sv(TECFG, {k: v[:1] for k, v in tr.items()},
                TRO.fifo_policy(TECFG), {})
     elif case == "arch":
-        with pytest.raises(ValueError, match="ROADMAP Queue 1 item 13"):
-            TSB.ServingRollout(E, archs=("tinyllama-1.1b", "whisper-small"),
+        # an unknown arch is refused when the backend is built; the
+        # reference's default (ASSIGNED_ARCHS, every family) builds, and
+        # model id 2 (whisper-small) is served on the CPU
+        with pytest.raises(KeyError, match="unknown arch"):
+            TSB.ServingRollout(E, archs=("tinyllama-1.1b", "no-such-arch"),
                                device="cpu")
-        with pytest.raises(ValueError, match="ROADMAP Queue 1 item 13"):
-            TSB.ServingRollout(E, device="cpu")     # the reference's default
+        sv = TSB.ServingRollout(E, prompt_len=6, max_new_tokens=4,
+                                device="cpu")
+        assert sv.archs == TCFG.ASSIGNED_ARCHS
+        tr = _np_trace(2)
+        tr["model"][:] = 2
+        sv(TECFG, _torch(tr), TRO.fifo_policy(TECFG), {}, num_steps=4)
+        assert sv.tasks_executed >= 1
+        assert {s.model_name for s in sv.pool.servers
+                if s.params is not None} == {"whisper-small"}
     elif case == "streams":
         with pytest.raises(ValueError, match="num_streams=1"):
             TSR.ServingStreamRunner(TECFG, None, {}, None, None,

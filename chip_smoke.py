@@ -43,7 +43,8 @@ runs, one line per result:
    redesigned kernels (all five) also get CUDA-event device time and a
    note of what changed, flash_attention is timed at tinyllama's and
    Jamba's prefill in fp32 and bf16, SDPA beside each, and ssm_scan at
-   Jamba's prefill in fp32 and bf16;
+   Jamba's prefill in fp32 and bf16; the two backward kernels at phase
+   22's tinyllama and Jamba layers, with SDPA's backward beside flash's;
 7. the denoiser_step kernel against its plain version (A = 10, H = 256,
    F in {16, 20}, B in {256, 300, 4096}, the timestep embedding one row
    per batch row and one row for all, and a 1-D input);
@@ -172,8 +173,32 @@ runs, one line per result:
    prefill and decode ms, launches per prefill against what the model's
    structure gives (36, 24, 0, and 1 flash + 7 ssm_scan), every request
    held to the plain attention and scan;
-then the phase 6 rows, a `kernels` JSON line after the card's
-`nvidia-smi` line, and
+22. training through the model zoo (ROADMAP Queue 1 item 13's training
+   part), run after phase 7, before the long phases: (a) the flash
+   backward kernel (`csrc/flash_attention_bwd.cu`) against
+   `attention_bwd_ref` on the same q, k, v, dO and the forward kernel's o
+   and lse (its lse against the plain log-sum-exp), fp32 and bf16, at
+   tinyllama's and Jamba's 2048-token layers, a sliding window of 512,
+   whisper's cross-attention (448 tokens against 1500 frames), hd 256
+   and S, T off the tiles; (b) the forward scan's chunk states against
+   the plain scan's, and the scan backward kernel (`csrc/
+   ssm_scan_bwd.cu`) against `ssm_scan_bwd_ref` at Jamba's layer in fp32
+   and bf16, a ragged S = 2000, B and C split from x_proj, and N = 4; (c)
+   one loss and gradient on the kernels against the plain versions
+   (`impl="ref"`), every leaf, at full width with the depth cut:
+   tinyllama-1.1b to 2 layers and the Jamba cut to one Mamba and one
+   attention layer, batch 1 x 2048; (d) the slice's full-width path,
+   `launch.train`'s `train_lm` on tinyllama-1.1b (fp32, batch 4 x 2048,
+   4 steps): ms a step, loss and grad norm per step, peak memory, 22 +
+   22 flash launches a step, and one profiled step whose recorded kernel
+   events equal the launches counted; (e) `train_lm` on the Jamba cut at
+   full width (2.7 B parameters, batch 1 x 2048, 2 steps): 7 + 7 scan
+   and 1 + 1 flash launches a step; (f) the ten ASSIGNED_ARCHS reduced,
+   two train steps each, kernels against the plain versions on the
+   loss and grad norm; (g) env_step, denoiser_chain and denoiser_step
+   raise on CUDA inputs that require grad (they have no backward);
+then the phase 6 rows (the two backward kernels among them), a `kernels`
+JSON line after the card's `nvidia-smi` line, and
 `{"ok": true, "device": {...}}` as the last line.
 
 A failing phase raises and the script exits non-zero; nothing is caught.
@@ -183,6 +208,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import re
@@ -215,7 +241,7 @@ LOSS_RTOL = 1e-4      # one SAC update, card against CPU
 # moves the logits by O(1).
 LOGIT_RTOL = 1e-3
 KERNELS = ("env_step", "denoiser_chain", "denoiser_step", "flash_attention",
-           "ssm_scan")
+           "ssm_scan", "flash_attention_bwd", "ssm_scan_bwd")
 # the redesigned kernels and what changed (their earlier times are in
 # PERF.md section 6)
 REDESIGNED = {
@@ -305,6 +331,49 @@ FA_CASES = (
     ("internvl2 prefill", 1, 512, 512, 14, 2, 64, True, 0),
 )
 CELLS = (("paper-8srv", 8, 0.1), ("paper-12srv", 12, 0.15))
+# phase 22: the backward kernels against their plain versions, relative to
+# each gradient's largest magnitude. Flash: fp32 2e-4 (the kernel sums its
+# fp32 products in tile order, the plain version in einsum order, over up
+# to T = 2048 keys; the forward's o and lse that both start from come from
+# the kernel); bf16 3e-2 (the gradients round to bf16, 2^-8, and the plain
+# version computes from the same bf16 inputs in fp32). Scan: fp32 1e-4
+# (the kernel's ex2.approx, ~2 ulp, against exp, through a recurrence of
+# up to 2048 steps); bf16 3e-2 (the plain version forms dt * x in bf16, the
+# kernel in fp32, and the gradients round to bf16). The chunk states at the
+# forward's SSM_TOL.
+FA_BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+SSM_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+LSE_TOL = 1e-5        # of max(1, max|lse|): fp32 log-sum-exp of each row
+# (case, B, S, T, H, KV, hd, causal, window): the training shapes
+FA_BWD_CASES = (
+    ("tinyllama layer", 1, 2048, 2048, 32, 4, 64, True, 0),
+    ("jamba layer, hd 128", 1, 2048, 2048, 32, 8, 128, True, 0),
+    ("sliding window 512", 1, 2048, 2048, 32, 4, 64, True, 512),
+    ("whisper cross-attention", 1, 448, 1500, 12, 12, 64, False, 0),
+    ("hd 256", 1, 512, 512, 16, 16, 256, True, 0),
+    ("S, T off the tiles, causal", 2, 200, 333, 8, 2, 64, True, 0),
+)
+# (case, B, S, I, N, dtype, dt_rank: B and C split from x_proj, or 0)
+SSM_BWD_CASES = (
+    ("jamba layer", 1, 2048, 8192, 16, torch.float32, 0),
+    ("jamba layer bf16", 1, 2048, 8192, 16, torch.bfloat16, 0),
+    ("S = 2000, a ragged last chunk", 1, 2000, 8192, 16, torch.float32, 0),
+    ("B and C split from x_proj", 1, 2048, 8192, 16, torch.float32, 256),
+    ("B = 2, I = 520, N = 4, split", 2, 300, 520, 4, torch.float32, 3),
+)
+# one train step, kernels against the plain versions: the loss relative,
+# each gradient leaf relative to its largest magnitude
+STEP_LOSS_RTOL = 1e-5
+STEP_GRAD_TOL = 1e-3
+TRAIN_ARCH = "tinyllama-1.1b"
+# the backward kernels: not Pallas kernels, the backward of two that are
+BACKWARD_OF = {
+    "flash_attention_bwd": ("not a Pallas kernel: the backward of "
+                            "src/repro/kernels/flash_attention/kernel.py:83, "
+                            "the reference's custom VJP flash_bwd"),
+    "ssm_scan_bwd": ("not a Pallas kernel: the backward of "
+                     "src/repro/kernels/ssm_scan/kernel.py:61, autodiff "
+                     "through the reference's checkpointed chunks")}
 
 
 def log(*parts):
@@ -319,7 +388,8 @@ SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "MUFU")
 SASS_NEEDS = {"flash_attention_kernel": ("HGMMA", "UTMALDG"),
               "chain_cluster_kernel": ("HMMA",),
               "step_cluster_kernel": ("HMMA",),
-              "ssm_scan_kernel": ("MUFU",)}
+              "ssm_scan_kernel": ("MUFU",),
+              "ssm_scan_bwd_kernel": ("MUFU",)}
 # kernels whose instantiations may not spill (ptxas -v, phase 1)
 NO_SPILLS = ("ssm_scan", "env_step")
 
@@ -489,12 +559,13 @@ def device_ms_events(fn, iters=200, warmup=3):
     return start.elapsed_time(end) / iters if ahead else None
 
 
-def kernel_device_ms(fn, name, iters=20):
-    """(mean device ms per launch of the kernel named `name`, launches the
-    profiler recorded) over `iters` calls under torch.profiler; (None, 0)
-    when it records none. The mean is over the recorded device events: late
-    in a long process the profiler can record fewer launches than were
-    made, and `key_averages()`'s total over `iters` then under-counts."""
+def kernel_device_ms(fn, name, iters=20, per_call=1):
+    """(mean device ms per call of the kernels whose names hold `name`,
+    launches the profiler recorded) over `iters` calls under
+    torch.profiler, a call being `per_call` such launches; (None, 0) when
+    it records none. The mean is over the recorded device events: late in
+    a long process the profiler can record fewer launches than were made,
+    and `key_averages()`'s total over `iters` then under-counts."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -504,7 +575,7 @@ def kernel_device_ms(fn, name, iters=20):
         torch.cuda.synchronize()
     us = [e.time_range.elapsed_us() for e in prof.events()
           if e.device_type != torch.autograd.DeviceType.CPU and name in e.name]
-    return (sum(us) / len(us) / 1e3, len(us)) if us else (None, 0)
+    return (per_call * sum(us) / len(us) / 1e3, len(us)) if us else (None, 0)
 
 
 def nbytes(*tensors):
@@ -512,10 +583,14 @@ def nbytes(*tensors):
 
 
 def _wrappers():
-    """{name: wrapper} of the five kernels, whose `launches` counters the
-    decision graphs keep true through replays."""
+    """{name: wrapper} of the seven kernels: the five whose `launches`
+    counters the decision graphs keep true through replays, and the two
+    backward kernels."""
     from repro_torch.actors.program import kernel_wrappers
-    return {w.__name__: w for w in kernel_wrappers()}
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd
+    from repro_torch.kernels.ssm_scan.kernel import ssm_scan_bwd
+    return {w.__name__: w for w in (*kernel_wrappers(), flash_attention_bwd,
+                                    ssm_scan_bwd)}
 
 
 def reset_counts():
@@ -2763,7 +2838,8 @@ def phase_serve(dev, card, actor, *, phase, arch, num_servers, rate,
     per_prefill = prefill_launches(cfg)
     want = {"env_step": 0, "denoiser_step": 0, "denoiser_chain": decisions,
             "flash_attention": per_prefill["flash_attention"] * served,
-            "ssm_scan": per_prefill["ssm_scan"] * served}
+            "ssm_scan": per_prefill["ssm_scan"] * served,
+            "flash_attention_bwd": 0, "ssm_scan_bwd": 0}
     assert counts == want, (counts, want)
     qos = eng.qos_summary()
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
@@ -3005,6 +3081,440 @@ def phase_zoo(dev, card, archs=ZOO_FULL, prompts=ZOO_PROMPTS, steps=16,
     return launches
 
 
+# ------------------------------------------------------ phase 22: training
+def _rel_err(got, want):
+    """(max |got - want|, max |want|) in fp32."""
+    want = want.float()
+    return ((got.float() - want).abs().max().item(),
+            want.abs().max().item())
+
+
+def phase_flash_bwd(dev, cases=FA_BWD_CASES):
+    """22a: flash_attention_bwd against attention_bwd_ref on the same
+    inputs, fp32 and bf16: q, k, v and dO random, o and lse from the
+    forward kernel (its lse also against the plain log-sum-exp). Returns
+    (the largest fp32 absolute error of a gradient, the fp32 inputs of
+    tinyllama's layer for timing); the log gives each error over its
+    gradient's largest magnitude."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_lse_ref)
+    g = torch.Generator(device=dev).manual_seed(22)
+    worst, worst_abs, timing = {}, 0.0, None
+    for (case, B, S, T, H, KV, hd, causal, window) in cases:
+        inputs32 = [torch.randn(shape, generator=g, device=dev) for shape in
+                    ((B, S, H, hd), (B, T, KV, hd), (B, T, KV, hd),
+                     (B, S, H, hd))]
+        errs = {}
+        for dtype, tol in FA_BWD_TOL.items():
+            qh, kh, vh, doh = (t.to(dtype).transpose(1, 2) for t in inputs32)
+            with uncounted():
+                o, lse = FK.flash_attention(qh, kh, vh, causal=causal,
+                                            window=window, with_lse=True)
+                got = FK.flash_attention_bwd(qh, kh, vh, o, lse, doh,
+                                             causal=causal, window=window)
+            want_lse = attention_lse_ref(qh, kh, causal=causal, window=window)
+            want = attention_bwd_ref(qh.float(), kh.float(), vh.float(),
+                                     o.float(), lse, doh.float(),
+                                     causal=causal, window=window)
+            sync(dev)
+            err, scale = _rel_err(lse, want_lse)
+            assert err <= LSE_TOL * max(1.0, scale), (case, dtype, "lse", err)
+            name = str(dtype).replace("torch.", "")
+            errs[name] = {"lse": err}
+            for gname, gt, wt in zip(("dq", "dk", "dv"), got, want):
+                assert gt.dtype == dtype and gt.shape == wt.shape, (case, gname)
+                assert bool(torch.isfinite(gt).all()), (case, gname)
+                err, scale = _rel_err(gt, wt)
+                assert err <= tol * scale, \
+                    f"flash bwd {case} {name} {gname}: {err} > {tol} x {scale}"
+                errs[name][gname] = err / scale
+                worst[name] = max(worst.get(name, 0.0), err / scale)
+                if dtype == torch.float32:
+                    worst_abs = max(worst_abs, err)
+        if case == "tinyllama layer":
+            timing = inputs32
+        log(f"phase 22a flash_attention_bwd {case}: B={B} S={S} T={T} H={H} "
+            f"KV={KV} hd={hd} causal={causal} window={window}; error / scale "
+            + json.dumps(errs))
+    log(f"phase 22a flash_attention_bwd kernel ~ plain on {len(cases)} cases:"
+        f" max error / scale {json.dumps(worst)} (tol {FA_BWD_TOL[torch.float32]}"
+        f" fp32, {FA_BWD_TOL[torch.bfloat16]} bf16)")
+    return worst_abs, timing
+
+
+def phase_ssm_bwd(dev, cases=SSM_BWD_CASES):
+    """22b: the forward kernel's chunk states against the plain scan's, then
+    ssm_scan_bwd against ssm_scan_bwd_ref on the same inputs (those chunk
+    states, a random dy and dhT) from a random h0; a case with dt_rank > 0
+    takes B and C as x_proj's strided splits. Returns (the largest fp32
+    absolute error of a gradient, the fp32 inputs of Jamba's layer for
+    timing); the log gives each error over its gradient's largest
+    magnitude."""
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref, ssm_scan_ref
+    from repro_torch.models.layers import softplus
+    g = torch.Generator(device=dev).manual_seed(23)
+    worst, worst_abs, timing = {}, 0.0, None
+    for (case, B, S, I, N, dtype, dt_rank) in cases:
+        rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)  # noqa: E731
+        dt, a = softplus(rnd(B, S, I)), -torch.exp(rnd(I, N))
+        if dt_rank:
+            _, bm, cm = torch.split(rnd(B, S, dt_rank + 2 * N),
+                                    [dt_rank, N, N], dim=-1)
+        else:
+            bm, cm = rnd(B, S, N), rnd(B, S, N)
+        x, h0, dhT = rnd(B, S, I), rnd(B, I, N), rnd(B, I, N)
+        dt, bm, cm, x = (t.to(dtype) for t in (dt, bm, cm, x))
+        dy = rnd(B, S, I).to(dtype)
+        with uncounted():
+            _, _, hc = SK.ssm_scan(dt, a, bm, cm, x, h0, with_chunks=True)
+            got = SK.ssm_scan_bwd(dt, a, bm, cm, x, hc, dy, dhT)
+        want_hc = ssm_scan_ref(dt, a, bm, cm, x, h0, chunk_states=True)[2]
+        want = ssm_scan_bwd_ref(dt, a, bm, cm, x, hc, dy, dhT)
+        sync(dev)
+        name = str(dtype).replace("torch.", "")
+        err, scale = _rel_err(hc, want_hc)
+        assert err <= SSM_TOL[dtype] * max(1.0, scale), (case, "hc", err)
+        errs = {"hc": err / max(1.0, scale)}
+        tol = SSM_BWD_TOL[dtype]
+        for gname, gt, wt in zip(("ddt", "da", "dbm", "dcm", "dx", "dh0"), got,
+                                 want):
+            assert gt.dtype == wt.dtype and gt.shape == wt.shape, (case, gname)
+            assert bool(torch.isfinite(gt).all()), (case, gname)
+            err, scale = _rel_err(gt, wt)
+            assert err <= tol * scale, \
+                f"ssm_scan bwd {case} {gname}: {err} > {tol} x {scale}"
+            errs[gname] = err / scale
+            worst[name] = max(worst.get(name, 0.0), err / scale)
+            if dtype == torch.float32:
+                worst_abs = max(worst_abs, err)
+        if case == "jamba layer":
+            timing = (dt, a, bm, cm, x, hc, dy, dhT)
+        log(f"phase 22b ssm_scan_bwd {case}: B={B} S={S} I={I} N={N} {name}; "
+            f"error / scale " + json.dumps(errs))
+    log(f"phase 22b ssm_scan_bwd kernel ~ plain on {len(cases)} cases: max "
+        f"error / scale {json.dumps(worst)} (tol {SSM_BWD_TOL[torch.float32]}"
+        f" fp32, {SSM_BWD_TOL[torch.bfloat16]} bf16)")
+    return worst_abs, timing
+
+
+def _lm_batch(cfg, B, S, dev, seed):
+    """tokens, labels (one in ten -100) and the frontend's input, drawn on
+    the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)
+    labels = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)
+    labels[torch.rand((B, S), generator=g, device=dev) < 0.1] = -100
+    batch = {"tokens": tokens, "labels": labels}
+    if cfg.frontend == "vision":
+        batch["image_embeds"] = torch.randn(
+            (B, cfg.frontend_tokens, cfg.frontend_dim), generator=g,
+            device=dev)
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((B, cfg.frontend_tokens, cfg.d_model),
+                                      generator=g, device=dev)
+    return batch
+
+
+def _mixers(cfg):
+    """(attention layers, Mamba layers) of a decoder-only config; whisper's
+    attention calls (encoder, decoder self and cross)."""
+    if cfg.family == "audio":
+        return cfg.encoder_layers + 2 * cfg.num_layers, 0
+    from repro_torch.models.lm import n_periods, period_spec
+    spec = [m for m, _ in period_spec(cfg)]
+    return (n_periods(cfg) * spec.count("attn"),
+            n_periods(cfg) * spec.count("mamba"))
+
+
+def _same_grads(got, want, ctx):
+    """The loss and every gradient leaf of two `value_and_grad` results
+    within STEP_LOSS_RTOL and STEP_GRAD_TOL; returns the worst leaf's
+    error / scale."""
+    from repro_torch.common.pytree import tree_paths
+    loss, lw = got[0].item(), want[0].item()
+    assert abs(loss - lw) <= STEP_LOSS_RTOL * abs(lw), (ctx, loss, lw)
+    worst = 0.0
+    wflat = tree_paths(want[2])
+    for key, gt in tree_paths(got[2]).items():
+        err, scale = _rel_err(gt, wflat[key])
+        assert bool(torch.isfinite(gt).all()), (ctx, key)
+        if scale == 0.0:
+            assert err == 0.0, (ctx, key, err)
+            continue
+        assert err <= STEP_GRAD_TOL * scale, (ctx, key, err, scale)
+        worst = max(worst, err / scale)
+    return worst
+
+
+def phase_train_parity(dev, card, S=2048):
+    """22c: one loss-and-grad on the kernels against the same on the plain
+    versions (`impl="ref"`, plain autograd), at full width with the depth
+    cut: tinyllama-1.1b to 2 layers, and JAMBA_CUT to one Mamba and one
+    attention layer; batch 1, S tokens. The plain attention's (B, H, S, S)
+    scores rule out the full depth."""
+    from repro_torch.common.config import get_config
+    from repro_torch.models.zoo import build_model
+    from repro_torch.training.optimizer import value_and_grad
+    register_jamba_cut()
+    for arch, cut in ((TRAIN_ARCH, dict(num_layers=2)),
+                      (JAMBA_CUT, dict(num_layers=2, attn_period=2))):
+        cfg = dataclasses.replace(get_config(arch), **cut)
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(22),
+                            device=dev)
+        batch = _lm_batch(cfg, 1, S, dev, seed=22)
+        reset_counts()
+        got = value_and_grad(lambda p: model.loss(p, batch), params)
+        sync(dev)
+        counts = read_counts()
+        want = value_and_grad(lambda p: model.loss(p, batch, impl="ref"),
+                              params)
+        worst = _same_grads(got, want, f"22c {arch}")
+        n_attn, n_mamba = _mixers(cfg)
+        assert counts["flash_attention"] == counts["flash_attention_bwd"] \
+            == n_attn, counts
+        assert counts["ssm_scan"] == counts["ssm_scan_bwd"] == n_mamba, counts
+        log(f"phase 22c train step parity {arch} cut {json.dumps(cut)} B=1 "
+            f"S={S} [{card}]: loss kernels {got[0].item()} plain "
+            f"{want[0].item()}; worst leaf error / scale {worst} (tol "
+            f"{STEP_GRAD_TOL}); launches "
+            + json.dumps({k: v for k, v in counts.items() if v}))
+        del params, got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _train_run(dev, card, phase, cfg, batch, seq, steps):
+    """`launch.train`'s `train_lm` on `cfg` (fp32, `steps` steps of `batch`
+    x `seq` Markov tokens) with the counts reset just before and read just
+    after, peak device memory and the synchronised ms a step. Returns
+    (params, counts, row)."""
+    from repro_torch.launch import train as LT
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tcfg = LT.TrainConfig(total_steps=steps, warmup=max(5, steps // 10),
+                          log_every=1)
+    dcfg = LT.DataConfig(vocab_size=min(cfg.vocab_size, 2048), seq_len=seq,
+                         batch_size=batch, seed=0)
+    reset_counts()
+    t0 = time.perf_counter()
+    params, history = LT.train_lm(cfg, tcfg, dcfg, seed=0, verbose=False,
+                                  device=dev)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    for h in history:
+        assert np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]), h
+    later = [h["step_ms"] for h in history[1:]] or [history[0]["step_ms"]]
+    row = {"card": card, "arch": cfg.name, "params": cfg.param_count(),
+           "layers": cfg.num_layers, "d_model": cfg.d_model, "batch": batch,
+           "seq": seq, "steps": steps, "remat": False, "dtype": "float32",
+           "ms_per_step": float(np.median(later)),
+           "step_ms": [h["step_ms"] for h in history],
+           "loss": [h["loss"] for h in history],
+           "grad_norm": [h["grad_norm"] for h in history],
+           "peak_device_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "run_s": secs,
+           "launches_per_step": {k: v / steps for k, v in counts.items()
+                                 if v}}
+    log(f"phase {phase} train_lm {cfg.name} [{card}]: " + json.dumps(row))
+    return params, counts, row
+
+
+TRAIN_KERNELS = ("flash_attention_kernel", "flash_bwd_dq_kernel",
+                 "flash_bwd_dkdv_kernel", "ssm_scan_kernel",
+                 "ssm_scan_bwd_kernel")
+
+
+def _profiled_step(dev, card, phase, cfg, params, batch, seq):
+    """One train step (after a warm one) under a fresh torch.profiler
+    session, synchronised before it closes: wall, device busy time, idle
+    share, the ten largest device items by name, and the kernels' device
+    events against the launches the wrappers counted in the same window
+    (`profiled_launches`)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.zoo import build_model
+    from repro_torch.training import train_loop as TL
+    from repro_torch.training.data import DataConfig, MarkovTokens
+    from repro_torch.training.optimizer import adam_init
+    tcfg = TL.TrainConfig(total_steps=10, warmup=1)
+    step = TL.make_train_step(build_model(cfg), tcfg)
+    data = TL.batch_to_device(MarkovTokens(DataConfig(
+        vocab_size=min(cfg.vocab_size, 2048), seq_len=seq, batch_size=batch,
+        seed=1)).sample_batch(), dev)
+    state = adam_init(params)
+    step(params, state, data)
+    sync(dev)
+    reset_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, state, data)
+        sync(dev)
+        wall = time.perf_counter() - t0
+    counts = read_counts()
+    dev_events = [e for e in prof.events()
+                  if e.device_type != torch.autograd.DeviceType.CPU]
+    busy_us = sum(e.time_range.elapsed_us() for e in dev_events)
+    seen = {k: sum(1 for e in dev_events if k in e.name)
+            for k in TRAIN_KERNELS}
+    by_name = {}                  # kernel names cut to 60 characters
+    for e in dev_events:
+        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + \
+            e.time_range.elapsed_us()
+    want = {"flash_attention_kernel": counts["flash_attention"],
+            "flash_bwd_dq_kernel": counts["flash_attention_bwd"],
+            "flash_bwd_dkdv_kernel": counts["flash_attention_bwd"],
+            "ssm_scan_kernel": counts["ssm_scan"],
+            "ssm_scan_bwd_kernel": counts["ssm_scan_bwd"]}
+    row = {"card": card, "arch": cfg.name, "wall_ms": 1e3 * wall,
+           "device_busy_ms": busy_us / 1e3,
+           "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+           "device_events": len(dev_events), "profiled_launches": seen,
+           "counted_launches": want,
+           "top_device_ms": {n: us / 1e3 for n, us in sorted(
+               by_name.items(), key=lambda kv: -kv[1])[:10]}}
+    log(f"phase {phase} profiled train step {cfg.name} [{card}]: "
+        + json.dumps(row))
+    assert seen == want, (seen, want)
+    del state
+    return row
+
+
+def phase_train_tinyllama(dev, card, batch=4, seq=2048, steps=4):
+    """22d, the slice's full-width path: `train_lm` on tinyllama-1.1b (1.1 B
+    parameters, fp32) at batch x seq for `steps` steps: 22 flash forward
+    and 22 backward launches a step, then one profiled step."""
+    from repro_torch.common.config import get_config
+    cfg = get_config(TRAIN_ARCH)
+    params, counts, row = _train_run(dev, card, "22d", cfg, batch, seq, steps)
+    n_attn, _ = _mixers(cfg)
+    assert counts["flash_attention"] == counts["flash_attention_bwd"] \
+        == n_attn * steps, counts
+    row["profile"] = _profiled_step(dev, card, "22d", cfg, params, batch, seq)
+    del params
+    return counts, row
+
+
+def phase_train_jamba(dev, card, batch=1, seq=2048, steps=2):
+    """22e: `train_lm` on JAMBA_CUT at full width (2.7 B parameters, fp32;
+    its Adam state alone is ~22 GB) at batch x seq: 7 ssm_scan forward and
+    7 backward launches a step, 1 flash forward and 1 backward."""
+    from repro_torch.common.config import get_config
+    register_jamba_cut()
+    cfg = get_config(JAMBA_CUT)
+    params, counts, row = _train_run(dev, card, "22e", cfg, batch, seq, steps)
+    n_attn, n_mamba = _mixers(cfg)
+    assert counts["ssm_scan"] == counts["ssm_scan_bwd"] == n_mamba * steps, \
+        counts
+    assert counts["flash_attention"] == counts["flash_attention_bwd"] \
+        == n_attn * steps, counts
+    del params
+    return counts, row
+
+
+def phase_train_zoo(dev, card, B=2, S=96, steps=2):
+    """22f: the ten ASSIGNED_ARCHS reduced, `steps` train steps each on the
+    card through `Model.loss` (`make_train_step`), each step's loss and
+    grad norm against the same step on the plain versions (`impl="ref"`)
+    from a copy of the same params: MoE (capacity dispatch and aux),
+    xLSTM, the encoder-decoder and the vision frontend on the card."""
+    from repro_torch.common.config import ASSIGNED_ARCHS, get_config
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.models.zoo import build_model
+    from repro_torch.training import train_loop as TL
+    from repro_torch.training.optimizer import adam_init
+    tcfg = TL.TrainConfig(lr=1e-3, warmup=1, total_steps=steps)
+    total = {}
+    for i, arch in enumerate(ASSIGNED_ARCHS):
+        cfg = get_config(arch).reduced()
+        model = build_model(cfg)
+        plain = dataclasses.replace(model, loss=functools.partial(
+            model.loss, impl="ref"))
+        params = model.init(torch.Generator(device=dev).manual_seed(i),
+                            device=dev)
+        copy = tree_map(torch.clone, params)
+        runs = []
+        for m, p in ((model, params), (plain, copy)):
+            step, state, out = TL.make_train_step(m, tcfg), adam_init(p), []
+            reset_counts()
+            for k in range(steps):
+                batch = _lm_batch(cfg, B, S, dev, seed=100 * i + k)
+                p, state, loss, gnorm = step(p, state, batch)
+                out.append((loss.item(), gnorm.item()))
+            runs.append((out, read_counts()))
+        (got, counts), (want, _) = runs
+        for k, ((lg, ng), (lw, nw)) in enumerate(zip(got, want)):
+            assert np.isfinite(lg) and abs(lg - lw) <= STEP_LOSS_RTOL * abs(lw), \
+                (arch, k, lg, lw)
+            assert abs(ng - nw) <= STEP_GRAD_TOL * abs(nw), (arch, k, ng, nw)
+        n_attn, n_mamba = _mixers(cfg)
+        assert counts["flash_attention"] == counts["flash_attention_bwd"] \
+            == n_attn * steps, (arch, counts)
+        assert counts["ssm_scan"] == counts["ssm_scan_bwd"] \
+            == n_mamba * steps, (arch, counts)
+        add_counts(total, counts)
+        log(f"phase 22f train {cfg.name} B={B} S={S} [{card}]: loss, grad "
+            f"norm kernels {json.dumps(got)} plain {json.dumps(want)}; "
+            "launches " + json.dumps({k: v for k, v in counts.items() if v}))
+        del params, copy
+    return total
+
+
+def phase_no_backward_guard(dev, env_timing, chain_timing, step_timing):
+    """22g: env_step, denoiser_chain and denoiser_step have no backward, so
+    each raises when given a CUDA input that requires grad (instead of
+    returning an output without `grad_fn`)."""
+    from repro_torch.kernels.denoiser import kernel as DK
+    from repro_torch.kernels.env_step import kernel as EK
+    cfg, statics, st, a, q = env_timing
+    grad = lambda t: t.clone().requires_grad_()  # noqa: E731
+    chain = list(chain_timing)
+    chain[7] = grad(chain[7])
+    stepi = list(step_timing)
+    stepi[3] = grad(stepi[3])
+    calls = {"env_step": lambda: EK.env_step(
+                 cfg, statics, st._replace(time=grad(st.time)), a, q),
+             "denoiser_chain": lambda: DK.denoiser_chain(*chain),
+             "denoiser_step": lambda: DK.denoiser_step(*stepi)}
+    with uncounted():
+        for name, call in calls.items():
+            try:
+                call()
+            except RuntimeError as e:
+                assert f"{name} kernel has no backward" in str(e), e
+            else:
+                raise AssertionError(f"{name} returned under grad")
+    log("phase 22g env_step, denoiser_chain, denoiser_step raise on CUDA "
+        "inputs that require grad")
+
+
+def phase_training(dev, card, env_timing, chain_timing, step_timing):
+    """Phase 22, training through the zoo: 22a-22g. Returns (errors of the
+    backward kernels, their timing inputs, launches of the main paths
+    22d-22f)."""
+    t0 = time.perf_counter()
+    errs, launches = {}, {}
+    errs["flash_attention_bwd"], flash_in = phase_flash_bwd(dev)
+    errs["ssm_scan_bwd"], ssm_in = phase_ssm_bwd(dev)
+    phase_train_parity(dev, card)
+    counts, _ = phase_train_tinyllama(dev, card)
+    add_counts(launches, counts)
+    counts, _ = phase_train_jamba(dev, card)
+    add_counts(launches, counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    add_counts(launches, phase_train_zoo(dev, card))
+    phase_no_backward_guard(dev, env_timing, chain_timing, step_timing)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 22 took {time.perf_counter() - t0:.3f} s")
+    return errs, (flash_in, ssm_in), launches
+
+
 def _sdpa_call(q, k, v):
     """One PyTorch call computing flash_attention's function on the same
     (B, S, H, hd) tensors: `scaled_dot_product_attention` on head-major
@@ -3024,8 +3534,61 @@ def _sdpa_call(q, k, v):
                                                       is_causal=True)
 
 
+def _sdpa_bwd_call(q, k, v, do):
+    """One PyTorch call computing flash_attention_bwd's function on the same
+    tensors: autograd's backward of `scaled_dot_product_attention` (causal,
+    GQA by `enable_gqa`), its forward run once outside the timed call."""
+    import torch.nn.functional as F
+    qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    try:
+        out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                             enable_gqa=True)
+        ins = (qh, kh, vh)
+    except TypeError:
+        g = qh.shape[1] // kh.shape[1]
+        kr, vr = (t.repeat_interleave(g, dim=1).detach().requires_grad_()
+                  for t in (kh, vh))
+        out = F.scaled_dot_product_attention(qh, kr, vr, is_causal=True)
+        ins = (qh, kr, vr)
+    doh = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, ins, doh, retain_graph=True)
+
+
+def flash_bwd_work(q, k, v):
+    """(bytes, FLOPs, bound terms in seconds) of the causal attention
+    backward on (B, S, H, hd) q and (B, T, KV, hd) k, v: q, k, v, o, dO
+    and lse read and dq, dk, dv written once; five products, 10 hd FLOPs,
+    and one exponential per unmasked (query, key) pair."""
+    B, S, H, hd = q.shape
+    T = k.shape[1]
+    pairs = B * H * sum(min(i + 1, T) for i in range(S))
+    flops = 10 * hd * pairs
+    nb = nbytes(q, k, v, q, q, q, k, v) + B * H * S * 4
+    if q.dtype == torch.float32:
+        ops = {"fp32_operations": flops / FP32_FLOP_PER_S,
+               "tf32x3_operations": 3 * flops / TF32_FLOP_PER_S}
+    else:
+        ops = {"bf16_operations": flops / BF16_FLOP_PER_S}
+    return nb, flops, {"bytes": nb / HBM_BYTES_PER_S,
+                       "exponentials": pairs / SFU_EXP_PER_S, **ops}
+
+
+def ssm_bwd_work(dt, a, bm, cm, x, hc, dy, dhT):
+    """(bytes, bound terms in seconds) of the scan's backward: dt, A, B, C,
+    x, the chunk states, dy and dhT read once, ddt, dA, dB, dC, dx and dh0
+    written once; one exponential per state and step at the SFU rate (the
+    forward's, taken again) and 12 fp32 operations per state and step."""
+    B, S, I = dt.shape
+    states = B * S * I * a.shape[1]
+    nb = nbytes(dt, a, bm, cm, x, hc, dy, dhT) + nbytes(dt, a, bm, cm, x, dhT)
+    return nb, {"bytes": nb / HBM_BYTES_PER_S,
+                "exponentials": states / SFU_EXP_PER_S,
+                "fp32_operations": 12 * states / FP32_FLOP_PER_S}
+
+
 def measure(env_timing, chain_timing, step_timing, flash_timing, ssm_timing,
-            errs, launches, per_request, card):
+            train_timing, errs, launches, per_request, card):
     """One row per kernel at the main path's shapes. `ms` is the kernel's
     device time per launch, the mean over the launches torch.profiler
     recorded (`profiled_launches` of 20; CUDA events around back-to-back
@@ -3051,7 +3614,16 @@ def measure(env_timing, chain_timing, step_timing, flash_timing, ssm_timing,
     `launches_per_request` a serving kernel's per served request in phases
     12 and 14. The redesigned kernels (all five) also carry
     `event_device_ms` (CUDA events with the host ahead of the card,
-    `device_ms_events`) and, as text, what changed; the env_step row times
+    `device_ms_events`) and, as text, what changed. The two backward
+    kernels (phase 22's training path) are timed at tinyllama's 2048-token
+    layer (flash_attention_bwd, fp32, two launches a call, so its profiler
+    `ms` sums both) and Jamba's (ssm_scan_bwd, fp32), with CUDA-event
+    device ms, their plain versions and, for flash, autograd's backward of
+    `scaled_dot_product_attention` as the library call (its forward
+    outside the timing); their `launches` are phase 22's main paths
+    (22d-22f). Their bounds count five products and one exponential a pair
+    (flash, `flash_bwd_work`) and the bytes, one exponential and 12 fp32
+    operations per state and step (scan, `ssm_bwd_work`). The env_step row times
     the call the main path makes, an `EnvStepPlan`'s, and the denoiser_step
     row the distilled decision's call, one embedding row for all; the
     ssm_scan row's `variants` time Jamba's prefill in fp32 and bf16."""
@@ -3111,6 +3683,25 @@ def measure(env_timing, chain_timing, step_timing, flash_timing, ssm_timing,
     ssm_flops = 6 * states
     ssm_bytes, ssm_terms = ssm_work(dt, sa, sbm, scm, sx, sh0)
     fp32 = lambda f: {"fp32_operations": f / FP32_FLOP_PER_S}  # noqa: E731
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref
+    flash_in, ssm_in = train_timing
+    bq, bk, bv, bdo = flash_in                  # fp32, (B, S, H, hd) ...
+    bqh, bkh, bvh, bdoh = (t.transpose(1, 2) for t in flash_in)
+    with uncounted():
+        bo, blse = FK.flash_attention(bqh, bkh, bvh, causal=True,
+                                      with_lse=True)
+    fbwd_k = lambda: FK.flash_attention_bwd(  # noqa: E731
+        bqh, bkh, bvh, bo, blse, bdoh, causal=True)
+    fbwd_p = lambda: attention_bwd_ref(  # noqa: E731
+        bqh, bkh, bvh, bo, blse, bdoh, causal=True)
+    fbwd_nb, fbwd_flops, fbwd_terms = flash_bwd_work(bq, bk, bv)
+    sbwd_k = lambda: SK.ssm_scan_bwd(*ssm_in)  # noqa: E731
+    sbwd_p = lambda: ssm_scan_bwd_ref(*ssm_in)  # noqa: E731
+    sbwd_nb, sbwd_terms = ssm_bwd_work(*ssm_in)
+    sbwd_states = ssm_in[0].numel() * ssm_in[1].shape[1]
     rows = []
     for (name, src, replaces, k_fn, p_fn, lib_fn, nb, flops, ops_s, kname,
          it) in (
@@ -3137,10 +3728,22 @@ def measure(env_timing, chain_timing, step_timing, flash_timing, ssm_timing,
              "src/repro/kernels/ssm_scan/kernel.py:61", ssm_k, ssm_p, None,
              ssm_bytes, ssm_flops,
              {k: v for k, v in ssm_terms.items() if k != "bytes"},
-             "ssm_scan_kernel", 20)):
+             "ssm_scan_kernel", 20),
+            ("flash_attention_bwd", "src/repro_torch/csrc/flash_attention_bwd.cu",
+             "src/repro/models/attention.py:126", fbwd_k, fbwd_p,
+             _sdpa_bwd_call(bq, bk, bv, bdo), fbwd_nb, fbwd_flops,
+             {k: v for k, v in fbwd_terms.items() if k != "bytes"},
+             "flash_bwd_", 10),
+            ("ssm_scan_bwd", "src/repro_torch/csrc/ssm_scan_bwd.cu",
+             "src/repro/models/blocks.py:284", sbwd_k, sbwd_p, None,
+             sbwd_nb, 12 * sbwd_states,
+             {k: v for k, v in sbwd_terms.items() if k != "bytes"},
+             "ssm_scan_bwd_kernel", 10)):
         call_ms = time_ms(k_fn, it)
-        dev_ms, seen = kernel_device_ms(k_fn, kname)
-        plain_ms = time_ms(p_fn, max(it // 4, 5))
+        dev_ms, seen = kernel_device_ms(
+            k_fn, kname, per_call=2 if name == "flash_attention_bwd" else 1)
+        plain_ms = (time_ms(p_fn, 2, warmup=1) if name in BACKWARD_OF
+                    else time_ms(p_fn, max(it // 4, 5)))
         terms = {"bytes": nb / HBM_BYTES_PER_S, **ops_s}
         bound, top = bound_of(terms)
         rows.append({"name": name, "route": "cuda", "source": src,
@@ -3160,6 +3763,9 @@ def measure(env_timing, chain_timing, step_timing, flash_timing, ssm_timing,
         if name in REDESIGNED:
             rows[-1].update({"event_device_ms": device_ms_events(k_fn, it),
                              "redesigned": REDESIGNED[name]})
+        if name in BACKWARD_OF:
+            rows[-1].update({"event_device_ms": device_ms_events(k_fn, it),
+                             "note": BACKWARD_OF[name]})
         if name == "flash_attention":
             rows[-1]["variants"] = flash_variants(flash_timing)
         if name == "ssm_scan":
@@ -3299,6 +3905,10 @@ def main():
     phase_profile(dev, card)
     phase_loop_parity(dev)
     log(f"phases 2-5 and 7 took {time.perf_counter() - t0:.3f} s")
+    train_errs, train_timing, counts = phase_training(
+        dev, card, env_timing, chain_timing, step_timing)
+    errs.update(train_errs)
+    add_counts(launches, counts)
     t0 = time.perf_counter()
     ts, counts = phase_train(dev, card)
     add_counts(launches, counts)
@@ -3361,7 +3971,7 @@ def main():
     for name in KERNELS:
         assert launches.get(name, 0) > 0, (name, launches)
     rows = measure(env_timing, chain_timing, step_timing, flash_timing,
-                   ssm_timing, errs, launches, per_request, card)
+                   ssm_timing, train_timing, errs, launches, per_request, card)
     log(card)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

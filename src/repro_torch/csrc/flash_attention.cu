@@ -354,6 +354,7 @@ __global__ void __launch_bounds__(Layout<T, HD>::THREADS, 1)
 flash_attention_kernel(const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap,
                        const T* __restrict__ q, T* __restrict__ o,
+                       float* __restrict__ lse,
                        long long qsb, long long qsh, long long qss,
                        long long osb, long long osh, long long oss, int S,
                        int T_len, int group, int causal, int window,
@@ -622,6 +623,12 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap kmap,
       for (int j = 0; j < 8; ++j)
         store2(op + row * oss + n * 64 + 8 * j + 2 * t,
                oacc[n][4 * j + 2 * hf] * inv, oacc[n][4 * j + 2 * hf + 1] * inv);
+    // the row's log-sum-exp of the scaled scores, natural-log units (the
+    // softmax above takes expf of scale * S, so m and l are already in
+    // them): what the backward recomputes P from
+    if (lse != nullptr && t == 0)
+      lse[((long long)b * gridDim.x + h) * S + row] =
+          m[hf] + logf(fmaxf(l[hf], 1e-30f));
   }
 }
 
@@ -683,7 +690,7 @@ int make_map(CUtensorMap* map, const void* base, bool fp32, int hd, int T,
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const long long* st, int B, int H, int KV, int S, int T_len,
            int group, int causal, int window, float scale,
            cudaStream_t stream) {
@@ -702,25 +709,26 @@ int launch(const void* q, const void* k, const void* v, void* o,
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(H, B, (S + Plan<T, HD>::BQ - 1) / Plan<T, HD>::BQ);
   flash_attention_kernel<T, HD><<<grid, L::THREADS, L::TOTAL, stream>>>(
-      kmap, vmap, static_cast<const T*>(q), static_cast<T*>(o), st[0], st[1],
+      kmap, vmap, static_cast<const T*>(q), static_cast<T*>(o), lse, st[0],
+      st[1],
       st[2], st[9], st[10], st[11], S, T_len, group, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
-              const long long* st, int B, int H, int KV, int S, int T_len,
-              int group, int causal, int window, float scale,
+              float* lse, const long long* st, int B, int H, int KV, int S,
+              int T_len, int group, int causal, int window, float scale,
               cudaStream_t stream) {
   switch (hd) {
     case 64:
-      return launch<T, 64>(q, k, v, o, st, B, H, KV, S, T_len, group, causal,
+      return launch<T, 64>(q, k, v, o, lse, st, B, H, KV, S, T_len, group, causal,
                            window, scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, st, B, H, KV, S, T_len, group,
+      return launch<T, 128>(q, k, v, o, lse, st, B, H, KV, S, T_len, group,
                             causal, window, scale, stream);
     case 256:
-      return launch<T, 256>(q, k, v, o, st, B, H, KV, S, T_len, group,
+      return launch<T, 256>(q, k, v, o, lse, st, B, H, KV, S, T_len, group,
                             causal, window, scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -749,6 +757,9 @@ extern "C" int flash_attention_smem_bytes(int hd, int dtype) {
 // the element strides `st` = (q: batch, head, seq; k: ...; v: ...; o: ...);
 // unit stride along hd, base addresses and the strides of k and v (in
 // bytes) multiples of 16. dtype 0 = float32, 1 = bfloat16 (all four alike).
+// `lse`, when not null, receives each row's log-sum-exp of the scaled
+// scores, contiguous fp32 (B, H, S), for the backward; null (every serving
+// prefill) writes nothing more.
 // Returns a CUDA error code, or 10000 when libcuda offers no
 // cuTensorMapEncodeTiled and 10001 + its CUresult when it refuses a map.
 extern "C" int flash_attention_launch(
@@ -756,7 +767,7 @@ extern "C" int flash_attention_launch(
     long long qsh, long long qss, long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss, long long osb, long long osh,
     long long oss, int B, int H, int KV, int S, int T_len, int hd, int dtype,
-    int causal, int window, float scale, void* stream) {
+    int causal, int window, float scale, void* stream, void* lse) {
   if (KV <= 0 || H % KV != 0 || B <= 0 || S <= 0 || T_len <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long st[12] = {qsb, qsh, qss, ksb, ksh, kss,
@@ -764,10 +775,10 @@ extern "C" int flash_attention_launch(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int group = H / KV;
   if (dtype == 0)
-    return launch_hd<float>(hd, q, k, v, o, st, B, H, KV, S, T_len, group,
-                            causal, window, scale, s);
+    return launch_hd<float>(hd, q, k, v, o, static_cast<float*>(lse), st, B,
+                            H, KV, S, T_len, group, causal, window, scale, s);
   if (dtype == 1)
-    return launch_hd<bf16>(hd, q, k, v, o, st, B, H, KV, S, T_len, group,
-                           causal, window, scale, s);
+    return launch_hd<bf16>(hd, q, k, v, o, static_cast<float*>(lse), st, B,
+                           H, KV, S, T_len, group, causal, window, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

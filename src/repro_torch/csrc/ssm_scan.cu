@@ -204,7 +204,7 @@ __global__ void __launch_bounds__(NT, 2) ssm_scan_kernel(
     const T* __restrict__ dt, const float* __restrict__ a,
     const T* __restrict__ bm, const T* __restrict__ cm,
     const T* __restrict__ x, const float* __restrict__ h0,
-    T* __restrict__ y, float* __restrict__ hT,
+    T* __restrict__ y, float* __restrict__ hT, float* __restrict__ h_chunk,
     long long dt_sb, long long dt_ss, long long x_sb, long long x_ss,
     long long b_sb, long long b_ss, long long c_sb, long long c_ss,
     int S, int I, int u_dt, int u_x, int u_b, int u_c, int u_y) {
@@ -284,6 +284,13 @@ __global__ void __launch_bounds__(NT, 2) ssm_scan_kernel(
         reinterpret_cast<const T*>(st + 2 * P * XS + P * BS + seg * BS);
     const float* a_c = s_a + cl * AW;
     float* h_c = s_h + cl * AW;
+    // the state at the chunk's start, for the backward (h_chunk: (B, chunks,
+    // I, N) fp32): the channel's lanes read its carry before any of them
+    // replaces it (the group loop's __syncwarp below orders the two)
+    if (h_chunk != nullptr && cl < width) {
+      float* dst = h_chunk + (((long long)b * chunks + k) * I + c0 + cl) * N;
+      for (int n = seg; n < N; n += P) dst[n] = h_c[n];
+    }
 
     float dtv[R], dtx[R], acc[R];
 #pragma unroll
@@ -369,7 +376,7 @@ int unit_of(const void* p, long long sb, long long ss, int B, int S, int elt,
 
 template <typename T, int N>
 int launch_n(const void* dt, const float* a, const void* bm, const void* cm,
-             const void* x, const float* h0, void* y, float* hT,
+             const void* x, const float* h0, void* y, float* hT, float* hc,
              long long dt_sb, long long dt_ss, long long x_sb, long long x_ss,
              long long b_sb, long long b_ss, long long c_sb, long long c_ss,
              int B, int S, int I, cudaStream_t stream) {
@@ -388,23 +395,23 @@ int launch_n(const void* dt, const float* a, const void* bm, const void* cm,
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(dt), a, static_cast<const T*>(bm),
       static_cast<const T*>(cm), static_cast<const T*>(x), h0,
-      static_cast<T*>(y), hT, dt_sb, dt_ss, x_sb, x_ss, b_sb, b_ss, c_sb,
+      static_cast<T*>(y), hT, hc, dt_sb, dt_ss, x_sb, x_ss, b_sb, b_ss, c_sb,
       c_ss, S, I, u_dt, u_x, u_b, u_c, u_y);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_t(const void* dt, const float* a, const void* bm, const void* cm,
-             const void* x, const float* h0, void* y, float* hT,
+             const void* x, const float* h0, void* y, float* hT, float* hc,
              long long dt_sb, long long dt_ss, long long x_sb, long long x_ss,
              long long b_sb, long long b_ss, long long c_sb, long long c_ss,
              int B, int S, int I, int N, cudaStream_t stream) {
   switch (N) {
     case 4:
-      return launch_n<T, 4>(dt, a, bm, cm, x, h0, y, hT, dt_sb, dt_ss, x_sb,
+      return launch_n<T, 4>(dt, a, bm, cm, x, h0, y, hT, hc, dt_sb, dt_ss, x_sb,
                             x_ss, b_sb, b_ss, c_sb, c_ss, B, S, I, stream);
     case 16:
-      return launch_n<T, 16>(dt, a, bm, cm, x, h0, y, hT, dt_sb, dt_ss, x_sb,
+      return launch_n<T, 16>(dt, a, bm, cm, x, h0, y, hT, hc, dt_sb, dt_ss, x_sb,
                              x_ss, b_sb, b_ss, c_sb, c_ss, B, S, I, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -423,23 +430,27 @@ extern "C" int ssm_scan_smem_bytes(int N, int dtype) {
 // dt, x: (B, S, I) with batch and sequence strides dt_sb, dt_ss, x_sb, x_ss;
 // bm, cm: (B, S, N) likewise; a: contiguous fp32 (I, N); h0, hT: contiguous
 // fp32 (B, I, N); y: contiguous (B, S, I). dtype 0 = fp32, 1 = bf16 for dt,
-// bm, cm, x and y. N in {4, 16}. Launches on `stream`; returns the
-// launch's CUDA error code (0 on success).
+// bm, cm, x and y. N in {4, 16}. `hc`, when not null, receives the fp32
+// state at the start of every 64-step chunk, (B, ceil(S / 64), I, N): the
+// checkpoints the backward rebuilds the states from; null writes nothing
+// more. Launches on `stream`; returns the launch's CUDA error code (0 on
+// success).
 extern "C" int ssm_scan_launch(
     const void* dt, const void* a, const void* bm, const void* cm,
     const void* x, const void* h0, void* y, void* hT,
     long long dt_sb, long long dt_ss, long long x_sb, long long x_ss,
     long long b_sb, long long b_ss, long long c_sb, long long c_ss,
-    int B, int S, int I, int N, int dtype, void* stream) {
+    int B, int S, int I, int N, int dtype, void* stream, void* hc) {
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* af = static_cast<const float*>(a);
   const auto* h0f = static_cast<const float*>(h0);
   auto* hTf = static_cast<float*>(hT);
+  auto* hcf = static_cast<float*>(hc);
   if (dtype == 0)
-    return launch_t<float>(dt, af, bm, cm, x, h0f, y, hTf, dt_sb, dt_ss, x_sb,
+    return launch_t<float>(dt, af, bm, cm, x, h0f, y, hTf, hcf, dt_sb, dt_ss, x_sb,
                            x_ss, b_sb, b_ss, c_sb, c_ss, B, S, I, N, st);
   if (dtype == 1)
-    return launch_t<__nv_bfloat16>(dt, af, bm, cm, x, h0f, y, hTf, dt_sb,
+    return launch_t<__nv_bfloat16>(dt, af, bm, cm, x, h0f, y, hTf, hcf, dt_sb,
                                    dt_ss, x_sb, x_ss, b_sb, b_ss, c_sb, c_ss,
                                    B, S, I, N, st);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -28,7 +28,8 @@ BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: per-kernel flags; env_step's clock must round like the reference, so
 #: nvcc may not contract a multiply and an add into one FMA there
 EXTRA_FLAGS = {"env_step": ("-fmad=false",), "denoiser_chain": (),
-               "denoiser_step": (), "flash_attention": (), "ssm_scan": ()}
+               "denoiser_step": (), "flash_attention": (), "ssm_scan": (),
+               "flash_attention_bwd": (), "ssm_scan_bwd": ()}
 
 
 def nvcc_path() -> str:

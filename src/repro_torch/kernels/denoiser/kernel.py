@@ -41,6 +41,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build as KB
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.denoiser.ref import denoiser_chain_ref, denoiser_ref
 
 #: shared memory one block may use on an H100 (232,448 bytes)
@@ -170,6 +171,8 @@ def denoiser_chain(x, noises, f_s, tembs, coef_x, coef_e, coef_n,
             return denoiser_chain_ref(x, noises, f_s, tembs, coef_x, coef_e,
                                       coef_n, w1, b1, w2, b2, w3, b3)
         raise ValueError(f"denoiser_chain runs on cpu or cuda, not {x.device}")
+    refuse_grad("denoiser_chain", x, noises, f_s, tembs, coef_x, coef_e,
+                coef_n, w1, b1, w2, b2, w3, b3)
     dev = x.get_device()
     B, A = x.shape
     K, TD = tembs.shape
@@ -304,6 +307,7 @@ def denoiser_step(x, temb, f_s, w1, b1, w2, b2, w3, b3):
                             dim=-1)
             return denoiser_ref(inp, w1, b1, w2, b2, w3, b3)
         raise ValueError(f"denoiser_step runs on cpu or cuda, not {x.device}")
+    refuse_grad("denoiser_step", x, temb, f_s, w1, b1, w2, b2, w3, b3)
     dev = x.get_device()
     B, A = x.shape
     TD = temb.shape[-1]

@@ -36,6 +36,7 @@ import torch
 
 from repro_torch.core import env as EV
 from repro_torch.kernels import build as KB
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.denoiser.kernel import SMEM_LIMIT
 from repro_torch.kernels.env_step.ref import env_step_ref
 
@@ -266,6 +267,7 @@ class EnvStepPlan:
         self.check(state, action, q)
         if self._dev < 0:
             return env_step_ref(self.cfg, self.statics, state, action, q)
+        refuse_grad("env_step", *state, action, *q, *self.statics.values())
         o = self.carve(self.buffers())
         err = _lib().env_step_launch(self._cfg, self._table, self.B,
                                      int(self.faulty),

@@ -23,8 +23,16 @@ TMA needs 16-byte-aligned base addresses and strides, which the wrapper
 checks (it raises, it does not copy). Keys at or past T are masked by the
 kernel: the caller pads nothing.
 
-For CPU tensors the wrapper takes the plain version (`ref.attention_ref`);
-for CUDA tensors it launches the kernel or raises.
+`flash_attention(..., with_lse=True)` also returns each row's
+log-sum-exp, which `flash_attention_bwd` (`csrc/flash_attention_bwd.cu`,
+the counterpart of the reference's `flash_bwd`) recomputes P from. The
+backward is a first, simple kernel: fp32 FMAs on the CUDA cores, two
+launches (dQ and D, then dK and dV), no atomics; `bwd_smem_bytes` gives
+its shared memory.
+
+For CPU tensors the wrappers take the plain versions (`ref.attention_ref`,
+`ref.attention_lse_ref`, `ref.attention_bwd_ref`); for CUDA tensors they
+launch the kernels or raise.
 """
 from __future__ import annotations
 
@@ -36,7 +44,9 @@ import torch
 
 from repro_torch.kernels import build as KB
 from repro_torch.kernels.denoiser.kernel import SMEM_LIMIT
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_lse_ref,
+                                                     attention_ref)
 
 #: head dims the kernel is instantiated for (tinyllama 64; qwen2, llama3.2
 #: and Jamba 128; gemma 256)
@@ -103,7 +113,7 @@ def _lib():
     lib = KB.load("flash_attention")
     lib.flash_attention_launch.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12
-        + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
+        + [ctypes.c_int] * 9 + [ctypes.c_float] + [ctypes.c_void_p] * 2)
     lib.flash_attention_launch.restype = ctypes.c_int
     lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 2
     lib.flash_attention_smem_bytes.restype = ctypes.c_int
@@ -145,13 +155,18 @@ def _strides(name, t, es):
     return out
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    with_lse: bool = False):
     """q: (B, H, S, hd); k, v: (B, KV, T, hd), H % KV == 0; returns
-    (B, H, S, hd) in q's dtype. Any strides with a unit stride along hd
-    (multiples of 16 bytes on the card). On the card the output is a
-    head-major view of a contiguous (B, S, H, hd) tensor."""
+    (B, H, S, hd) in q's dtype, and with `with_lse` also each row's
+    log-sum-exp of the scaled scores, (B, H, S) fp32. Any strides with a
+    unit stride along hd (multiples of 16 bytes on the card). On the card
+    the output is a head-major view of a contiguous (B, S, H, hd) tensor."""
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window)
+        o = attention_ref(q, k, v, causal=causal, window=window)
+        if with_lse:
+            return o, attention_lse_ref(q, k, causal=causal, window=window)
+        return o
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
     B, H, S, hd = q.shape
@@ -178,17 +193,113 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     o = torch.empty((B, S, H, hd), dtype=q.dtype,
                     device=q.device).transpose(1, 2)
     strides += list(o.stride()[:3])
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     err = _lib().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *strides,
         B, H, KV, S, T, hd, _DTYPES[q.dtype], int(causal), int(window),
-        float(hd) ** -0.5, KB.raw_stream(q.get_device()))
+        float(hd) ** -0.5, KB.raw_stream(q.get_device()),
+        None if lse is None else lse.data_ptr())
     if err != 0:
         raise RuntimeError(
             f"flash_attention kernel launch failed: error {err} (a CUDA "
             f"error; 10000: libcuda offers no cuTensorMapEncodeTiled; "
             f"10001 + n: it refused a map with CUresult n)")
     flash_attention.launches += 1
-    return o
+    return (o, lse) if with_lse else o
 
 
 flash_attention.launches = 0
+
+
+def bwd_smem_bytes(hd: int):
+    """(dQ kernel, dK / dV kernel) shared memory per CTA in bytes at head
+    dim `hd`: `Smem` in csrc/flash_attention_bwd.cu. Tiles of BQ query rows
+    and BK keys (64 and 64; 32 and 32 at hd 256), every operand staged as
+    fp32 rows of hd + 1 floats: Q, dO, K and V tiles, dS (and for dK / dV
+    also P) as rows of BK + 1, and lse and D per query row."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd kernel: head_dim {hd} not in "
+                         f"{HEAD_DIMS}")
+    bq = bk = 32 if hd == 256 else 64
+    rows = (2 * bq + 2 * bk) * (hd + 1)
+    return (4 * (rows + bq * (bk + 1) + 2 * bq),
+            4 * (rows + 2 * bq * (bk + 1) + 2 * bq))
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib():
+    lib = KB.load("flash_attention_bwd")
+    lib.flash_attention_bwd_launch.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 15
+        + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
+    lib.flash_attention_bwd_launch.restype = ctypes.c_int
+    lib.flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.flash_attention_bwd_smem_bytes.restype = ctypes.c_int
+    for hd in HEAD_DIMS:
+        got = tuple(lib.flash_attention_bwd_smem_bytes(hd, w) for w in (0, 1))
+        if got != bwd_smem_bytes(hd):
+            raise RuntimeError("csrc/flash_attention_bwd.cu and "
+                               "bwd_smem_bytes disagree on the shared memory: "
+                               f"{got} != {bwd_smem_bytes(hd)}")
+    return lib
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int = 0):
+    """(dq, dk, dv) of `flash_attention` from its inputs, its output `o`,
+    its `lse` and the output's gradient `do`, head-major as the forward's
+    (q, o, do: (B, H, S, hd); k, v: (B, KV, T, hd); lse: (B, H, S) fp32).
+    Returns the gradients in q's dtype, head-major views of contiguous
+    (B, S, H, hd) and (B, T, KV, hd) tensors on the card. q, k, v, o and do
+    may have any strides with a unit stride along hd."""
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                 window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cpu or cuda, not "
+                         f"{q.device}")
+    B, H, S, hd = q.shape
+    KV, T = k.shape[1], k.shape[2]
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash_attention_bwd kernel: float32 or bfloat16 "
+                         f"inputs, not {q.dtype}")
+    bwd_smem_bytes(hd)                 # raises on a head dim it does not take
+    for name, t, shape, dtype in (
+            ("k", k, (B, KV, T, hd), q.dtype), ("v", v, (B, KV, T, hd), q.dtype),
+            ("o", o, (B, H, S, hd), q.dtype), ("do", do, (B, H, S, hd), q.dtype),
+            ("lse", lse, (B, H, S), torch.float32)):
+        if t.device != q.device or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(
+                f"flash_attention_bwd kernel: {name} must be {dtype} of shape "
+                f"{shape} on {q.device}; got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device}")
+    if H % KV or min(B, S, T) == 0:
+        raise ValueError(f"flash_attention_bwd kernel: H={H} KV={KV} B={B} "
+                         f"S={S} T={T}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"flash_attention_bwd kernel: {name} needs a "
+                             f"unit stride along head_dim")
+    if not lse.is_contiguous():
+        raise ValueError("flash_attention_bwd kernel: lse must be contiguous")
+    dev = q.device
+    dq = torch.empty((B, S, H, hd), dtype=q.dtype, device=dev)
+    dk = torch.empty((B, T, KV, hd), dtype=q.dtype, device=dev)
+    dv = torch.empty_like(dk)
+    dsum = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    strides = [s for t in (q, k, v, o, do) for s in t.stride()[:3]]
+    err = _bwd_lib().flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), *strides, B, H, KV, S, T, hd, _DTYPES[q.dtype],
+        int(causal), int(window), float(hd) ** -0.5,
+        KB.raw_stream(q.get_device()))
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
+                           f"error {err}")
+    flash_attention_bwd.launches += 1
+    return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+flash_attention_bwd.launches = 0

@@ -1,23 +1,60 @@
-"""Entry point of the flash attention kernel, in the (B, S, H, hd) contract
+"""Entry point of the flash attention kernels, in the (B, S, H, hd) contract
 of `models.attention.flash_attention` (the reference's
 `flash_attention_jnp`): q (B, S, H, hd), k and v (B, T, KV, hd) ->
 (B, S, H, hd).
 
 `impl="auto"` dispatches by the tensors' device: a CUDA tensor launches the
-hand-written kernel (it launches or raises; there is no fallback), a CPU
-tensor takes the plain version. `impl="ref"` takes the plain version on any
-device. The head-major views the kernel reads are transposes, not copies.
+hand-written kernels (they launch or raise; there is no fallback), a CPU
+tensor takes the plain versions. When autograd will need the gradient (grad
+mode on and an input that requires it), the call is a
+`torch.autograd.Function`: its forward is the forward kernel, which then
+also writes each row's log-sum-exp, and its backward the backward kernel
+(`flash_attention_bwd`), the counterpart of the reference's custom VJP; no
+(S, T) matrix is kept or made. Otherwise (every serving prefill) the
+forward kernel runs alone, without the lse. `impl="ref"` takes the plain
+version on any device and differentiates it with plain autograd. The
+head-major views the kernels read are transposes, not copies.
 """
 from __future__ import annotations
 
-from repro_torch.kernels.flash_attention.kernel import flash_attention
+import torch
+
+from repro_torch.kernels.flash_attention.kernel import (flash_attention,
+                                                        flash_attention_bwd)
 from repro_torch.kernels.flash_attention.ref import attention_ref
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with the flash backward: (q, k, v, o, lse) saved, the
+    gradients from `flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        o, lse = flash_attention(qh, kh, vh, causal=causal, window=window,
+                                 with_lse=True)
+        ctx.save_for_backward(qh, kh, vh, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o.transpose(1, 2)
+
+    @staticmethod
+    def backward(ctx, do):
+        qh, kh, vh, o, lse = ctx.saved_tensors
+        # autograd may hand over an expanded or strided dO
+        doh = do.contiguous().transpose(1, 2)
+        dq, dk, dv = flash_attention_bwd(qh, kh, vh, o, lse, doh,
+                                         causal=ctx.causal, window=ctx.window)
+        return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2), \
+            None, None
 
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
               impl: str = "auto"):
     if impl not in ("auto", "ref"):
         raise ValueError(f"impl must be auto|ref, got {impl!r}")
+    if impl == "auto" and torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, int(window))
     fn = flash_attention if impl == "auto" else attention_ref
     o = fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
            causal=causal, window=window)

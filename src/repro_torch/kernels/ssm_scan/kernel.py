@@ -16,8 +16,16 @@ of each stage, one barrier a chunk (the source note has the design and
 what holds it above its bound). `ssm_plan` gives the launch's shape and
 shared memory.
 
-For CPU tensors the wrapper takes the plain version (`ref.ssm_scan_ref`);
-for CUDA tensors it launches the kernel or raises.
+`ssm_scan(..., with_chunks=True)` also returns the fp32 state at the start
+of every 64-step chunk, the checkpoints `ssm_scan_bwd` (`csrc/
+ssm_scan_bwd.cu`, the gradient of the scan) rebuilds the states from, one
+chunk at a time, as the reference's `jax.checkpoint`-ed chunks do. The
+backward is a first, simple kernel: one thread per (channel, state), the
+chunk's 64 states rebuilt in registers, then the reverse recurrence;
+`bwd_smem_bytes` gives its shared memory.
+
+For CPU tensors the wrappers take the plain versions (`ref.ssm_scan_ref`,
+`ref.ssm_scan_bwd_ref`); for CUDA tensors they launch the kernels or raise.
 """
 from __future__ import annotations
 
@@ -29,7 +37,8 @@ import torch
 
 from repro_torch.kernels import build as KB
 from repro_torch.kernels.denoiser.kernel import SMEM_LIMIT
-from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+from repro_torch.kernels.ssm_scan.ref import (CHUNK, ssm_scan_bwd_ref,
+                                              ssm_scan_ref)
 
 #: state sizes the kernel is instantiated for (Jamba and Mamba use 16)
 STATE_DIMS = (4, 16)
@@ -113,7 +122,7 @@ def _lib():
     lib = KB.load("ssm_scan")
     lib.ssm_scan_launch.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 8
-        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
     lib.ssm_scan_launch.restype = ctypes.c_int
     lib.ssm_scan_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.ssm_scan_smem_bytes.restype = ctypes.c_int
@@ -126,22 +135,19 @@ def _lib():
     return lib
 
 
-def ssm_scan(dt, a, bm, cm, x, h0):
-    """dt, x: (B, S, I); a: (I, N) fp32; bm, cm: (B, S, N); h0: (B, I, N)
-    fp32. Returns (y (B, S, I) in dt's dtype, hT (B, I, N) fp32). dt, x,
-    bm and cm share a dtype and may have any batch and sequence strides
-    with a unit last stride; a and h0 are contiguous."""
-    if dt.device.type == "cpu":
-        return ssm_scan_ref(dt, a, bm, cm, x, h0)
-    if dt.device.type != "cuda":
-        raise ValueError(f"ssm_scan runs on cpu or cuda, not {dt.device}")
+def _check(dt, a, bm, cm, x, **fp32):
+    """The kernels' shared checks: shapes, dtypes, devices and strides of
+    the inputs, and of the fp32 tensors `fp32` ((B, I, N) unless named
+    hc)."""
     B, S, I = dt.shape
     N = a.shape[-1]
     ssm_plan(B, S, I, N, dt.dtype)
+    want = {"hc": (B, -(-S // CHUNK), I, N)}
     for name, t, shape, dtype in (
             ("a", a, (I, N), torch.float32), ("bm", bm, (B, S, N), dt.dtype),
             ("cm", cm, (B, S, N), dt.dtype), ("x", x, (B, S, I), dt.dtype),
-            ("h0", h0, (B, I, N), torch.float32)):
+            *((k, t, want.get(k, (B, I, N)), torch.float32)
+              for k, t in fp32.items())):
         if t.device != dt.device or t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(
                 f"ssm_scan kernel: {name} must be {dtype} of shape {shape} on "
@@ -150,21 +156,117 @@ def ssm_scan(dt, a, bm, cm, x, h0):
         if t.stride(-1) != 1:
             raise ValueError(f"ssm_scan kernel: {name} needs a unit stride "
                              f"along its last axis")
-    for name, t in (("a", a), ("h0", h0)):
+    for name, t in (("a", a), *fp32.items()):
         if not t.is_contiguous():
             raise ValueError(f"ssm_scan kernel: {name} must be contiguous")
+    return B, S, I, N
+
+
+def ssm_scan(dt, a, bm, cm, x, h0, *, with_chunks: bool = False):
+    """dt, x: (B, S, I); a: (I, N) fp32; bm, cm: (B, S, N); h0: (B, I, N)
+    fp32. Returns (y (B, S, I) in dt's dtype, hT (B, I, N) fp32), and with
+    `with_chunks` also the state at each 64-step chunk's start, (B,
+    ceil(S / 64), I, N) fp32. dt, x, bm and cm share a dtype and may have
+    any batch and sequence strides with a unit last stride; a and h0 are
+    contiguous."""
+    if dt.device.type == "cpu":
+        return ssm_scan_ref(dt, a, bm, cm, x, h0, chunk_states=with_chunks)
+    if dt.device.type != "cuda":
+        raise ValueError(f"ssm_scan runs on cpu or cuda, not {dt.device}")
+    B, S, I, N = _check(dt, a, bm, cm, x, h0=h0)
     y = torch.empty((B, S, I), dtype=dt.dtype, device=dt.device)
     hT = torch.empty((B, I, N), dtype=torch.float32, device=dt.device)
+    hc = (torch.empty((B, -(-S // CHUNK), I, N), dtype=torch.float32,
+                      device=dt.device) if with_chunks else None)
     strides = [s for t in (dt, x, bm, cm) for s in t.stride()[:2]]
     stream = torch.cuda.current_stream(dt.device).cuda_stream
     err = _lib().ssm_scan_launch(
         dt.data_ptr(), a.data_ptr(), bm.data_ptr(), cm.data_ptr(),
         x.data_ptr(), h0.data_ptr(), y.data_ptr(), hT.data_ptr(), *strides,
-        B, S, I, N, _DTYPES[dt.dtype], stream)
+        B, S, I, N, _DTYPES[dt.dtype], stream,
+        None if hc is None else hc.data_ptr())
     if err != 0:
         raise RuntimeError(f"ssm_scan kernel launch failed: CUDA error {err}")
     ssm_scan.launches += 1
-    return y, hT
+    return (y, hT, hc) if with_chunks else (y, hT)
 
 
 ssm_scan.launches = 0
+
+#: the backward kernel's block: threads, warps
+BWD_THREADS = 256
+_BWD_WARPS = BWD_THREADS // 32
+
+
+def bwd_smem_bytes(N: int) -> int:
+    """Shared memory of one block of the backward kernel, bytes:
+    `smem_floats` in csrc/ssm_scan_bwd.cu. A block holds 256 / N channels;
+    per 64-step chunk it stages dt, x, dy, ddt and dx (64 x channels), B
+    and C (64 x N) and the cross-warp partials of dC and dB (64 x 8 warps x
+    N x 2), all fp32."""
+    if N not in STATE_DIMS:
+        raise ValueError(f"ssm_scan_bwd kernel: state size {N} not in "
+                         f"{STATE_DIMS}")
+    return 4 * (5 * CHUNK * (BWD_THREADS // N) + 2 * CHUNK * N
+                + 2 * CHUNK * _BWD_WARPS * N)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib():
+    lib = KB.load("ssm_scan_bwd")
+    lib.ssm_scan_bwd_launch.argtypes = (
+        [ctypes.c_void_p] * 14 + [ctypes.c_longlong] * 8
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.ssm_scan_bwd_launch.restype = ctypes.c_int
+    lib.ssm_scan_bwd_smem_bytes.argtypes = [ctypes.c_int]
+    lib.ssm_scan_bwd_smem_bytes.restype = ctypes.c_int
+    for N in STATE_DIMS:
+        if lib.ssm_scan_bwd_smem_bytes(N) != bwd_smem_bytes(N):
+            raise RuntimeError("csrc/ssm_scan_bwd.cu and bwd_smem_bytes "
+                               "disagree on the shared-memory layout")
+    return lib
+
+
+def ssm_scan_bwd(dt, a, bm, cm, x, hc, dy, dhT):
+    """The scan's gradient from the forward's chunk states `hc` (B,
+    ceil(S / 64), I, N), the output's gradient `dy` (B, S, I) and the final
+    state's `dhT` (B, I, N): returns (ddt, da, dbm, dcm, dx, dh0), ddt, dbm,
+    dcm and dx contiguous in dt's dtype, da (I, N) and dh0 (B, I, N) fp32.
+    dt, x, bm and cm as `ssm_scan` takes them; dy is made contiguous. On the
+    card dB and dC come from the kernel as one partial per block of
+    channels and dA as one per batch row; the fixed-order `torch.sum` over
+    those axes here finishes them (deterministic)."""
+    if dt.device.type == "cpu":
+        return ssm_scan_bwd_ref(dt, a, bm, cm, x, hc, dy, dhT)
+    if dt.device.type != "cuda":
+        raise ValueError(f"ssm_scan_bwd runs on cpu or cuda, not {dt.device}")
+    dy = dy.contiguous()
+    B, S, I, N = _check(dt, a, bm, cm, x, hc=hc, dhT=dhT)
+    if dy.dtype != dt.dtype or tuple(dy.shape) != (B, S, I):
+        raise ValueError(f"ssm_scan_bwd kernel: dy must be {dt.dtype} of "
+                         f"shape {(B, S, I)}; got {dy.dtype} "
+                         f"{tuple(dy.shape)}")
+    dev, f32 = dt.device, torch.float32
+    blocks = -(-I // (BWD_THREADS // N))
+    ddt = torch.empty((B, S, I), dtype=dt.dtype, device=dev)
+    dx = torch.empty_like(ddt)
+    pdb = torch.empty((blocks, B, S, N), dtype=f32, device=dev)
+    pdc = torch.empty_like(pdb)
+    pda = torch.empty((B, I, N), dtype=f32, device=dev)
+    dh0 = torch.empty_like(pda)
+    strides = [s for t in (dt, x, bm, cm) for s in t.stride()[:2]]
+    err = _bwd_lib().ssm_scan_bwd_launch(
+        dt.data_ptr(), a.data_ptr(), bm.data_ptr(), cm.data_ptr(),
+        x.data_ptr(), hc.data_ptr(), dy.data_ptr(), dhT.data_ptr(),
+        ddt.data_ptr(), dx.data_ptr(), pdb.data_ptr(), pdc.data_ptr(),
+        pda.data_ptr(), dh0.data_ptr(), *strides, B, S, I, N,
+        _DTYPES[dt.dtype], KB.raw_stream(dt.get_device()))
+    if err != 0:
+        raise RuntimeError(f"ssm_scan_bwd kernel launch failed: CUDA error "
+                           f"{err}")
+    ssm_scan_bwd.launches += 1
+    return (ddt, pda.sum(0), pdb.sum(0).to(dt.dtype), pdc.sum(0).to(dt.dtype),
+            dx, dh0)
+
+
+ssm_scan_bwd.launches = 0

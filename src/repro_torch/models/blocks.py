@@ -405,14 +405,15 @@ def _mlstm_qkvif(p, scfg: SSMConfig, x):
     return (q, k, v, igate, log_sigmoid(fgate)), z
 
 
-def _mlstm_scan(qkvif, cache: Dict):
-    """The stabilised mLSTM recurrence, one step per position, from the
-    cache's state; writes the final C, n, m into the cache. The reference
-    pads S to 64-step chunks whose padded steps leave the state as it is,
-    so a plain loop over the S real steps reaches the same state. Returns
-    h (B, S, nh, dh)."""
+def _mlstm_scan(qkvif, state: Dict):
+    """The stabilised mLSTM recurrence, one step per position, from
+    `state`'s C, n and m. The reference pads S to 64-step chunks whose
+    padded steps leave the state as it is, so a plain loop over the S real
+    steps reaches the same state. Returns (h (B, S, nh, dh), the final
+    {"C", "n", "m"}); `state` is not written (autograd may still need
+    it)."""
     q, k, v, igate, fgate = qkvif
-    C, nvec, m = cache["C"], cache["n"], cache["m"]
+    C, nvec, m = state["C"], state["n"], state["m"]
     hs = []
     for t in range(q.shape[1]):
         qt, kt, vt, it, ft = q[:, t], k[:, t], v[:, t], igate[:, t], fgate[:, t]
@@ -427,23 +428,30 @@ def _mlstm_scan(qkvif, cache: Dict):
         den = torch.clamp(torch.abs(torch.einsum("bhj,bhj->bh", nvec, qt)),
                           min=1.0)
         hs.append(num / den[..., None])
-    cache["C"].copy_(C)
-    cache["n"].copy_(nvec)
-    cache["m"].copy_(m)
-    return torch.stack(hs, dim=1)
+    return torch.stack(hs, dim=1), {"C": C, "n": nvec, "m": m}
+
+
+def _mlstm_apply(p, scfg: SSMConfig, x, state: Dict):
+    """(block output, final state) from `state`."""
+    qkvif, z = _mlstm_qkvif(p, scfg, x)
+    hs, final = _mlstm_scan(qkvif, state)                      # (B,S,nh,dh)
+    b, s = x.shape[:2]
+    y = hs.reshape(b, s, -1).to(x.dtype) * F.silu(z)
+    return linear(p["down"], y), final
 
 
 def mlstm_prefill(p, cfg: ArchConfig, scfg: SSMConfig, x, cache: Dict):
-    qkvif, z = _mlstm_qkvif(p, scfg, x)
-    hs = _mlstm_scan(qkvif, cache)                             # (B,S,nh,dh)
-    b, s = x.shape[:2]
-    y = hs.reshape(b, s, -1).to(x.dtype) * F.silu(z)
-    return linear(p["down"], y), cache
+    """Full-sequence pass from the cache's state that leaves the final
+    state in the cache."""
+    y, final = _mlstm_apply(p, scfg, x, cache)
+    for key, val in final.items():
+        cache[key].copy_(val)
+    return y, cache
 
 
 def mlstm_train(p, cfg: ArchConfig, scfg: SSMConfig, x):
-    cache = init_mlstm_cache(cfg, scfg, x.shape[0], device=x.device)
-    return mlstm_prefill(p, cfg, scfg, x, cache)[0]
+    state = init_mlstm_cache(cfg, scfg, x.shape[0], device=x.device)
+    return _mlstm_apply(p, scfg, x, state)[0]
 
 
 def mlstm_decode(p, cfg: ArchConfig, scfg: SSMConfig, x, cache: Dict):
@@ -476,15 +484,16 @@ def init_slstm_cache(cfg: ArchConfig, scfg: SSMConfig, batch: int, *,
             "m": torch.full(shp, -1e30, dtype=f32, device=device)}
 
 
-def slstm_prefill(p, cfg: ArchConfig, scfg: SSMConfig, x, cache: Dict):
-    """The sLSTM recurrence, one step per position, from the cache's state;
-    writes the final c, n, h, m into the cache."""
+def _slstm_apply(p, cfg: ArchConfig, scfg: SSMConfig, x, state: Dict):
+    """The sLSTM recurrence, one step per position, from `state`'s c, n, h
+    and m: (block output, the final {"c", "n", "h", "m"}); `state` is not
+    written (autograd may still need it)."""
     b, s, _ = x.shape
     inner, nh, dh = _xlstm_dims(cfg, scfg)
     xi = linear(p["up"], x)
     wx = linear(p["w_gates"], xi).reshape(b, s, nh, 4 * dh).to(torch.float32)
     rk = p["r_gates"].to(torch.float32)
-    c, n, h, m = cache["c"], cache["n"], cache["h"], cache["m"]
+    c, n, h, m = state["c"], state["n"], state["h"], state["m"]
     hs = []
     for t in range(s):
         rec = torch.einsum("bhj,hjk->bhk", h, rk)              # (B,nh,4dh)
@@ -500,15 +509,22 @@ def slstm_prefill(p, cfg: ArchConfig, scfg: SSMConfig, x, cache: Dict):
         h = ot * c / torch.clamp(n, min=1.0)
         m = m_new
         hs.append(h)
-    for key, val in (("c", c), ("n", n), ("h", h), ("m", m)):
-        cache[key].copy_(val)
     y = torch.stack(hs, dim=1).reshape(b, s, inner).to(x.dtype)
-    return linear(p["down"], y), cache
+    return linear(p["down"], y), {"c": c, "n": n, "h": h, "m": m}
+
+
+def slstm_prefill(p, cfg: ArchConfig, scfg: SSMConfig, x, cache: Dict):
+    """Full-sequence pass from the cache's state that leaves the final
+    state in the cache."""
+    y, final = _slstm_apply(p, cfg, scfg, x, cache)
+    for key, val in final.items():
+        cache[key].copy_(val)
+    return y, cache
 
 
 def slstm_train(p, cfg: ArchConfig, scfg: SSMConfig, x):
-    cache = init_slstm_cache(cfg, scfg, x.shape[0], device=x.device)
-    return slstm_prefill(p, cfg, scfg, x, cache)[0]
+    state = init_slstm_cache(cfg, scfg, x.shape[0], device=x.device)
+    return _slstm_apply(p, cfg, scfg, x, state)[0]
 
 
 def slstm_decode(p, cfg: ArchConfig, scfg: SSMConfig, x, cache: Dict):

@@ -1,6 +1,5 @@
-"""Whisper-style encoder-decoder backbone, serving side (port of
-`repro/models/encdec.py`; `encdec_loss`, the training loss, is ROADMAP
-Queue 1 item 13's training part).
+"""Whisper-style encoder-decoder backbone (port of `repro/models/encdec.py`:
+serving, and the training loss `encdec_loss`).
 
 The conv/mel frontend is a stub, as in the reference: the caller provides
 precomputed frame embeddings (B, T_enc, d_model). The encoder is a
@@ -10,7 +9,9 @@ with bias, FFNs plain 2-layer gelu (tanh form), positions sinusoidal (added
 to the inputs; the attention blocks apply RoPE on top, as the reference's
 do), the output head tied to the embedding with the padded vocab masked.
 On the card every encoder layer, every decoder self-attention prefill and
-every cross-attention prefill launches the flash attention kernel.
+every cross-attention prefill launches the flash attention kernel, and a
+training step each one's backward kernel too (the cross-attention's
+non-causal, decoder tokens against the encoder frames).
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ from repro_torch.common.pytree import tree_map
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import blocks as B
 from repro_torch.models.layers import (embed, ffn, init_embedding, init_ffn,
-                                       init_layernorm, layernorm, linear)
+                                       init_layernorm, layernorm, linear,
+                                       next_token_nll)
 
 
 def sinusoid_pos(positions, d: int, dtype=torch.float32):
@@ -129,6 +131,16 @@ def encdec_logits(params, cfg: ArchConfig, frames, tokens,
         h = layernorm(lp["ln3"], x, cfg.norm_eps)
         x = x + ffn(lp["ffn"], h, "gelu")
     return _head(params, cfg, x)
+
+
+def encdec_loss(params, cfg: ArchConfig, frames, tokens, labels,
+                compute_dtype=torch.float32, *, impl: str = "auto"):
+    """Teacher-forced next-token cross entropy in fp32, labels < 0
+    ignored: (loss, {"nll", "ntokens"})."""
+    logits = encdec_logits(params, cfg, frames, tokens, compute_dtype,
+                           impl=impl)
+    nll, ntok = next_token_nll(logits.to(torch.float32), labels)
+    return nll, {"nll": nll, "ntokens": ntok}
 
 
 # ----------------------------------------------------------------------

@@ -75,6 +75,19 @@ def embed(p, tokens, dtype=torch.float32):
     return p["table"].to(dtype)[tokens]
 
 
+def next_token_nll(logits, labels):
+    """Mean cross entropy of fp32 `logits` (B, S, V) at `labels` (B, S),
+    labels < 0 ignored (the reference's -100): (loss, number of labelled
+    tokens as fp32)."""
+    valid = labels >= 0
+    safe = torch.where(valid, labels, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    ntok = valid.sum()
+    loss = ((logz - gold) * valid).sum() / torch.clamp(ntok, min=1)
+    return loss, ntok.to(torch.float32)
+
+
 # ----------------------------------------------------------------------
 # rotary position embeddings
 def rope_freqs(head_dim: int, theta: float, *, device=None):

@@ -1,7 +1,7 @@
 """Unified decoder-only LM covering the dense, MoE, SSM, hybrid and VLM
 families (port of `repro/models/lm.py`: `layer_pattern` "attn", "jamba",
-"mamba" and "xlstm", dense or MoE FFNs, the vision frontend; `lm_loss`,
-the training loss, is ROADMAP Queue 1 item 13's training part).
+"mamba" and "xlstm", dense or MoE FFNs, the vision frontend, and the
+training loss `lm_loss`).
 
 The layer stack is organised into *periods*, as in the reference: a period
 is the smallest repeating pattern of blocks (1 layer for a homogeneous
@@ -12,6 +12,7 @@ scans). Public API:
 
     period_spec(cfg)                 -> ((mixer, ffn), ...) per layer in period
     init_lm(cfg, generator, dtype)   -> params
+    lm_loss(params, cfg, tokens, labels, ...)     -> (loss, metrics)
     lm_logits(params, cfg, tokens, frontend=...)  -> ((B, S, padded_vocab), aux)
     init_cache(cfg, batch, cache_len, dtype)      -> cache
     lm_prefill(params, cfg, tokens, cache, frontend=...) -> (logits_last, cache)
@@ -22,7 +23,9 @@ A cache is {"periods": {"blk<i>_attn": {"k", "v"}, "blk<i>_mamba":
 "n", "h", "m"}}, "pos": int}, each tensor stacked by period; prefill and
 decode write its tensors in place and return it with the new position. On
 the card a prefill launches the flash attention kernel once per attention
-layer and the selective-scan kernel once per Mamba layer. `frontend`
+layer and the selective-scan kernel once per Mamba layer; a training step
+launches each layer's forward kernel once (twice with `remat`) and its
+backward kernel once. `frontend`
 (VLM: (B, frontend_tokens, frontend_dim) patch embeddings) is projected
 and prepended to the token embeddings, so its positions count in `pos`.
 """
@@ -32,17 +35,15 @@ import math
 from typing import Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import ArchConfig
 from repro_torch.common.device import resolve_device
 from repro_torch.common.pytree import normal_init, tree_map
 from repro_torch.models import blocks as B
 from repro_torch.models.layers import (embed, ffn, init_embedding, init_ffn,
-                                       init_rmsnorm, linear, rmsnorm)
-
-# what the port's model zoo does not do yet: training (`lm_loss`,
-# `encdec_loss`, `training/data.py`, `train_loop.py`)
-NOT_PORTED = "ROADMAP Queue 1 item 13"
+                                       init_rmsnorm, linear, next_token_nll,
+                                       rmsnorm)
 
 
 # ----------------------------------------------------------------------
@@ -173,20 +174,48 @@ def _head(params, cfg: ArchConfig, x):
 
 def lm_logits(params, cfg: ArchConfig, tokens, compute_dtype=torch.float32,
               *, frontend=None, impl: str = "auto",
-              moe_dropless: bool = False):
+              moe_dropless: bool = False, remat: bool = False):
     """Full-sequence causal logits (the training forward) and the summed
     MoE aux loss (0 without MoE FFNs). `moe_dropless=True` gives the
     slicing-invariant MoE forward that prefill and decode compute; the
-    default keeps the reference's capacity-dropped training dispatch."""
+    default keeps the reference's capacity-dropped training dispatch.
+    `remat` recomputes each period's activations in the backward
+    (`torch.utils.checkpoint`, the reference's `jax.checkpoint` of its
+    period function): only the period boundaries are kept."""
     x = _embed_tokens(params, cfg, tokens, frontend, compute_dtype)
-    aux = torch.zeros((), device=x.device)
-    for p in range(n_periods(cfg)):
-        pp = _period(params["periods"], p)
-        for i, (mixer, f) in enumerate(period_spec(cfg)):
+    spec = period_spec(cfg)
+
+    def period_fn(pp, x, aux):
+        for i, (mixer, f) in enumerate(spec):
             h = rmsnorm(pp[f"norm{i}_mix"], x, cfg.norm_eps)
             x = x + _mixer_train(pp, cfg, i, mixer, h, impl)
             x, aux = _ffn_apply(pp, cfg, i, f, x, aux, moe_dropless)
+        return x, aux
+
+    aux = torch.zeros((), device=x.device)
+    for p in range(n_periods(cfg)):
+        pp = _period(params["periods"], p)
+        if remat:
+            x, aux = checkpoint(period_fn, pp, x, aux, use_reentrant=False)
+        else:
+            x, aux = period_fn(pp, x, aux)
     return _head(params, cfg, x), aux
+
+
+def lm_loss(params, cfg: ArchConfig, tokens, labels, frontend=None,
+            compute_dtype=torch.float32, remat: bool = False, *,
+            impl: str = "auto"):
+    """Next-token cross entropy in fp32, labels < 0 ignored, plus the MoE
+    aux loss; the logits of the `frontend`'s positions are dropped.
+    Returns (loss, {"nll", "aux", "ntokens"}). On the card the attention
+    and the scan run their forward and backward kernels (`impl="ref"`: the
+    plain versions under plain autograd)."""
+    logits, aux = lm_logits(params, cfg, tokens, compute_dtype,
+                            frontend=frontend, impl=impl, remat=remat)
+    if frontend is not None:
+        logits = logits[:, frontend.shape[1]:]
+    nll, ntok = next_token_nll(logits.to(torch.float32), labels)
+    return nll + aux, {"nll": nll, "aux": aux, "ntokens": ntok}
 
 
 # ----------------------------------------------------------------------

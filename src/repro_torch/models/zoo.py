@@ -1,16 +1,16 @@
 """Model zoo: a uniform interface over every architecture family (port of
-`repro/models/zoo.py`, serving side: the decoder-only families through
-`models.lm` and the audio encoder-decoder through `models.encdec`).
+`repro/models/zoo.py`: the decoder-only families through `models.lm` and
+the audio encoder-decoder through `models.encdec`).
 
     model = build_model(cfg)
     params = model.init(generator, dtype, device=...)
+    loss, metrics = model.loss(params, batch)        # training
     cache = model.make_cache(batch, cache_len, dtype, device=...)
     logits, cache = model.prefill(params, batch, cache)
     logits, cache = model.decode(params, cache, token)
 
-``batch`` is a dict: tokens (+ frames for audio, image_embeds for vlm).
-`model.loss` raises: training through the zoo is ROADMAP Queue 1 item 13's
-training part.
+``batch`` is a dict: tokens (+ labels for the loss, frames for audio,
+image_embeds for vlm).
 """
 from __future__ import annotations
 
@@ -34,15 +34,25 @@ class Model:
     make_cache: Callable[..., Any]
 
 
-def build_model(cfg: ArchConfig) -> Model:
-    def loss(*_args, **_kw):
-        raise NotImplementedError(
-            f"{cfg.name}: training through the model zoo (lm_loss, "
-            f"encdec_loss) is not ported yet ({LM.NOT_PORTED})")
+def _frontend_of(cfg: ArchConfig, batch: Dict):
+    if cfg.frontend == "vision":
+        return batch["image_embeds"]
+    if cfg.frontend == "audio":
+        return batch.get("frames")
+    return None
 
+
+def build_model(cfg: ArchConfig) -> Model:
     if cfg.family == "audio":
         def init(generator, dtype=torch.float32, *, device=None):
             return ED.init_encdec(cfg, generator, dtype, device=device)
+
+        def loss(params, batch: Dict, compute_dtype=torch.float32,
+                 remat: bool = False, *, impl: str = "auto"):
+            del remat  # 12+12 layers: fits without activation checkpointing
+            return ED.encdec_loss(params, cfg, batch["frames"],
+                                  batch["tokens"], batch["labels"],
+                                  compute_dtype, impl=impl)
 
         def make_cache(batch_size, cache_len, dtype=torch.bfloat16, *,
                        enc_len: Optional[int] = None, device=None):
@@ -67,6 +77,12 @@ def build_model(cfg: ArchConfig) -> Model:
     def init(generator, dtype=torch.float32, *, device=None):
         return LM.init_lm(cfg, generator, dtype, device=device)
 
+    def loss(params, batch: Dict, compute_dtype=torch.float32,
+             remat: bool = False, *, impl: str = "auto"):
+        return LM.lm_loss(params, cfg, batch["tokens"], batch["labels"],
+                          frontend=_frontend_of(cfg, batch),
+                          compute_dtype=compute_dtype, remat=remat, impl=impl)
+
     def make_cache(batch_size, cache_len, dtype=torch.bfloat16, *,
                    device=None):
         # the VLM prefill prepends the projected patch embeddings, so the
@@ -77,9 +93,9 @@ def build_model(cfg: ArchConfig) -> Model:
 
     def prefill(params, batch: Dict, cache, compute_dtype=torch.bfloat16, *,
                 impl: str = "auto"):
-        frontend = batch["image_embeds"] if cfg.frontend == "vision" else None
         return LM.lm_prefill(params, cfg, batch["tokens"], cache,
-                             compute_dtype, frontend=frontend, impl=impl)
+                             compute_dtype, frontend=_frontend_of(cfg, batch),
+                             impl=impl)
 
     def decode(params, cache, token, compute_dtype=torch.bfloat16):
         return LM.lm_decode(params, cfg, cache, token, compute_dtype)

@@ -10,6 +10,12 @@ normalisation (`u + wd * p`, scaled by `-lr`), where `Adam(weight_decay=)`
 adds it to the gradient, and it computes `sqrt(v / bc2) + eps` where torch
 computes `sqrt(v) / sqrt(bc2) + eps`. The bias corrections are f32 powers,
 as `jnp.power` takes them.
+
+`clip_by_global_norm_` and `adam_apply_` are the same arithmetic done in
+place, leaf by leaf, on grads, params and the Adam moments (as a jitted
+step that donates its buffers would): a training step at full width then
+holds one copy of each, not the two that the functional update needs
+while it builds the new trees.
 """
 from __future__ import annotations
 
@@ -59,6 +65,15 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_map(lambda g: g * scale, grads), norm
 
 
+def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
+    """`clip_by_global_norm` in place on `grads`; returns the norm."""
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+    for g in tree_leaves(grads):
+        g.mul_(scale)
+    return norm
+
+
 def adam_update(grads, state: AdamState, params, lr, b1: float = 0.9,
                 b2: float = 0.999, eps: float = 1e-8,
                 weight_decay: float = 0.0) -> Tuple[Any, AdamState]:
@@ -80,6 +95,30 @@ def adam_update(grads, state: AdamState, params, lr, b1: float = 0.9,
     outs = tree_map(lambda *a: upd(*a), grads, state.mu, state.nu, params)
     pick = lambda i: tree_map(lambda _, o: o[i], grads, outs)  # noqa: E731
     return pick(0), AdamState(step=step, mu=pick(1), nu=pick(2))
+
+
+def adam_apply_(grads, state: AdamState, params, lr, b1: float = 0.9,
+                b2: float = 0.999, eps: float = 1e-8,
+                weight_decay: float = 0.0) -> AdamState:
+    """`adam_update` then `apply_updates`, in place: each leaf's moments and
+    param are updated with the same operations in the same order, one leaf
+    at a time. Returns the state (its `mu` and `nu` the updated tensors, its
+    step advanced)."""
+    step = state.step + 1
+    t = step.to(torch.float32)
+    f32 = dict(dtype=torch.float32, device=t.device)
+    bc1 = 1.0 - torch.pow(torch.tensor(b1, **f32), t)
+    bc2 = 1.0 - torch.pow(torch.tensor(b2, **f32), t)
+    for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state.mu),
+                          tree_leaves(state.nu), tree_leaves(params)):
+        g = g.to(torch.float32)
+        m.mul_(b1).add_((1 - b1) * g)
+        v.mul_(b2).add_((1 - b2) * torch.square(g))
+        u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+        if weight_decay:
+            u = u + weight_decay * p.to(torch.float32)
+        p.add_(((-lr) * u).to(p.dtype))
+    return AdamState(step=step, mu=state.mu, nu=state.nu)
 
 
 def apply_updates(params, updates):

@@ -201,6 +201,11 @@ def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    names = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+             for p in files[:-1]}
+    assert {"launch/train.py", "training/train_loop.py", "training/data.py",
+            "kernels/flash_attention/ops.py",
+            "kernels/ssm_scan/ops.py"} <= names
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib", "flax", "repro"}
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"

@@ -7,11 +7,12 @@ toolkit: `python3 chip_smoke.py`. It builds the hand-written kernels from
 runs, one line per result:
 
 1. the card's name and power limit, the kernels' build time, ptxas's
-   registers and spills (no ssm_scan or env_step instantiation may spill),
+   registers and spills (no ssm_scan, ssm_scan_bwd or env_step
+   instantiation may spill, nor the flash backward's at hd 64 and 128),
    and per kernel function the count of `wgmma`, TMA-load, `mma.sync` and
-   MUFU instructions in its SASS (cuobjdump): every flash_attention
-   instantiation must issue `wgmma` and TMA loads, both denoiser kernels
-   `mma.sync`, the scan MUFU (its exponentials);
+   MUFU instructions in its SASS (cuobjdump): every flash_attention and
+   flash backward instantiation must issue `wgmma` and TMA loads, both
+   denoiser kernels `mma.sync`, both scans MUFU (their exponentials);
 2. the env_step kernel against its plain PyTorch version on random states
    (B = 256, E in {8, 12}, K = 32, l = 8, one and three models, with and
    without fault columns; E = 5, K = 30, whose rows are not 16-byte
@@ -40,11 +41,13 @@ runs, one line per result:
 6. a timing row per kernel: device and call time, plain-version time,
    bound and (flash_attention) `scaled_dot_product_attention`'s time, at
    the main path's shapes (ssm_scan at Jamba's 2048-token prefill); the
-   redesigned kernels (all five) also get CUDA-event device time and a
+   redesigned kernels (all seven) also get CUDA-event device time and a
    note of what changed, flash_attention is timed at tinyllama's and
    Jamba's prefill in fp32 and bf16, SDPA beside each, and ssm_scan at
    Jamba's prefill in fp32 and bf16; the two backward kernels at phase
-   22's tinyllama and Jamba layers, with SDPA's backward beside flash's;
+   22's tinyllama and Jamba layers, with SDPA's backward beside flash's
+   (flash also at Jamba's hd-128 layer and both layers in bf16, the scan
+   in bf16);
 7. the denoiser_step kernel against its plain version (A = 10, H = 256,
    F in {16, 20}, B in {256, 300, 4096}, the timestep embedding one row
    per batch row and one row for all, and a 1-D input);
@@ -180,20 +183,23 @@ runs, one line per result:
    and lse (its lse against the plain log-sum-exp), fp32 and bf16, at
    tinyllama's and Jamba's 2048-token layers, a sliding window of 512,
    whisper's cross-attention (448 tokens against 1500 frames), hd 256
-   and S, T off the tiles; (b) the forward scan's chunk states against
+   and S, T off the tiles, two calls equal bit for bit on each; (b) the
+   forward scan's chunk states against
    the plain scan's, and the scan backward kernel (`csrc/
    ssm_scan_bwd.cu`) against `ssm_scan_bwd_ref` at Jamba's layer in fp32
-   and bf16, a ragged S = 2000, B and C split from x_proj, and N = 4; (c)
+   and bf16, a ragged S = 2000, B and C split from x_proj, and N = 4, two
+   calls equal bit for bit on each; (c)
    one loss and gradient on the kernels against the plain versions
    (`impl="ref"`), every leaf, at full width with the depth cut:
    tinyllama-1.1b to 2 layers and the Jamba cut to one Mamba and one
    attention layer, batch 1 x 2048; (d) the slice's full-width path,
    `launch.train`'s `train_lm` on tinyllama-1.1b (fp32, batch 4 x 2048,
-   4 steps): ms a step, loss and grad norm per step, peak memory, 22 +
+   4 steps): ms a step (beside the step before the backward kernels'
+   redesign), loss and grad norm per step, peak memory, 22 +
    22 flash launches a step, and one profiled step whose recorded kernel
    events equal the launches counted; (e) `train_lm` on the Jamba cut at
-   full width (2.7 B parameters, batch 1 x 2048, 2 steps): 7 + 7 scan
-   and 1 + 1 flash launches a step; (f) the ten ASSIGNED_ARCHS reduced,
+   full width (2.7 B parameters, batch 1 x 2048, 2 steps): ms a step
+   (likewise), 7 + 7 scan and 1 + 1 flash launches a step; (f) the ten ASSIGNED_ARCHS reduced,
    two train steps each, kernels against the plain versions on the
    loss and grad norm; (g) env_step, denoiser_chain and denoiser_step
    raise on CUDA inputs that require grad (they have no backward);
@@ -256,7 +262,17 @@ REDESIGNED = {
                         "registers, 3xTF32 for fp32, bf16 native"),
     "ssm_scan": ("S split over a block's threads: 32 channels x 8 segments, "
                  "runs folded, shuffle scan with the chunk carry, one "
-                 "ex2.approx per state and step, cp.async ring")}
+                 "ex2.approx per state and step, cp.async ring"),
+    "flash_attention_bwd": ("both kernels on wgmma with TMA rings (3xTF32 "
+                            "for fp32, bf16 native), S^T and dP^T taken "
+                            "transposed in the dK / dV kernel, one CTA per "
+                            "query head with per-head partials summed in "
+                            "head order by the last CTA"),
+    "ssm_scan_bwd": ("the forward's block (32 channels x 8 segments): "
+                     "states rebuilt by the forward's fold and scan, G by "
+                     "the same scan from the right, one ex2.approx per "
+                     "state and step, dB / dC reduce-scattered, I / 32 "
+                     "partials summed by a second launch")}
 # exponentials per second on the special-function units: 16 per clock per
 # SM (Hopper white paper: 4 per SM sub-partition), 132 SMs, 1.98 GHz boost
 SFU_EXP_PER_S = 16 * 132 * 1.98e9
@@ -389,9 +405,13 @@ SASS_NEEDS = {"flash_attention_kernel": ("HGMMA", "UTMALDG"),
               "chain_cluster_kernel": ("HMMA",),
               "step_cluster_kernel": ("HMMA",),
               "ssm_scan_kernel": ("MUFU",),
-              "ssm_scan_bwd_kernel": ("MUFU",)}
-# kernels whose instantiations may not spill (ptxas -v, phase 1)
-NO_SPILLS = ("ssm_scan", "env_step")
+              "ssm_scan_bwd_kernel": ("MUFU",),
+              "flash_bwd_": ("HGMMA", "UTMALDG")}
+# kernels whose instantiations may not spill (ptxas -v, phase 1), and
+# kernels of which only the functions whose names hold a tag may not (the
+# flash backward at hd 64 and 128; hd 256 has narrower plans)
+NO_SPILLS = ("ssm_scan", "env_step", "ssm_scan_bwd")
+NO_SPILLS_AT = {"flash_attention_bwd": ("Li64E", "Li128E")}
 
 
 def sass_counts(name):
@@ -415,7 +435,8 @@ def sass_counts(name):
 
 def check_ptxas(names):
     """Logs ptxas's registers and spills per kernel function from each
-    library's build log and fails where a kernel of NO_SPILLS spills."""
+    library's build log and fails where a kernel of NO_SPILLS, or a
+    function of NO_SPILLS_AT, spills."""
     from repro_torch.kernels import build as KB
     for name in names:
         fn = None
@@ -427,7 +448,9 @@ def check_ptxas(names):
                 log(f"phase 1 ptxas {name}: {line.strip()}")
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
-            if m and name in NO_SPILLS:
+            guarded = name in NO_SPILLS or any(
+                tag in (fn or "") for tag in NO_SPILLS_AT.get(name, ()))
+            if m and guarded:
                 assert m.group(1) == m.group(2) == "0", (name, fn, line)
 
 
@@ -3092,15 +3115,16 @@ def _rel_err(got, want):
 def phase_flash_bwd(dev, cases=FA_BWD_CASES):
     """22a: flash_attention_bwd against attention_bwd_ref on the same
     inputs, fp32 and bf16: q, k, v and dO random, o and lse from the
-    forward kernel (its lse also against the plain log-sum-exp). Returns
-    (the largest fp32 absolute error of a gradient, the fp32 inputs of
-    tinyllama's layer for timing); the log gives each error over its
+    forward kernel (its lse also against the plain log-sum-exp); a second
+    call on the same inputs gives the same bits. Returns (the largest fp32
+    absolute error of a gradient, {"tinyllama", "jamba": the fp32 inputs
+    of that layer for timing}); the log gives each error over its
     gradient's largest magnitude."""
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                          attention_lse_ref)
     g = torch.Generator(device=dev).manual_seed(22)
-    worst, worst_abs, timing = {}, 0.0, None
+    worst, worst_abs, timing = {}, 0.0, {}
     for (case, B, S, T, H, KV, hd, causal, window) in cases:
         inputs32 = [torch.randn(shape, generator=g, device=dev) for shape in
                     ((B, S, H, hd), (B, T, KV, hd), (B, T, KV, hd),
@@ -3113,6 +3137,10 @@ def phase_flash_bwd(dev, cases=FA_BWD_CASES):
                                             window=window, with_lse=True)
                 got = FK.flash_attention_bwd(qh, kh, vh, o, lse, doh,
                                              causal=causal, window=window)
+                again = FK.flash_attention_bwd(qh, kh, vh, o, lse, doh,
+                                               causal=causal, window=window)
+            assert all(torch.equal(x, y) for x, y in zip(got, again)), \
+                f"flash bwd {case} {dtype}: two calls differ"
             want_lse = attention_lse_ref(qh, kh, causal=causal, window=window)
             want = attention_bwd_ref(qh.float(), kh.float(), vh.float(),
                                      o.float(), lse, doh.float(),
@@ -3133,13 +3161,16 @@ def phase_flash_bwd(dev, cases=FA_BWD_CASES):
                 if dtype == torch.float32:
                     worst_abs = max(worst_abs, err)
         if case == "tinyllama layer":
-            timing = inputs32
+            timing["tinyllama"] = inputs32
+        if case == "jamba layer, hd 128":
+            timing["jamba"] = inputs32
         log(f"phase 22a flash_attention_bwd {case}: B={B} S={S} T={T} H={H} "
             f"KV={KV} hd={hd} causal={causal} window={window}; error / scale "
             + json.dumps(errs))
     log(f"phase 22a flash_attention_bwd kernel ~ plain on {len(cases)} cases:"
         f" max error / scale {json.dumps(worst)} (tol {FA_BWD_TOL[torch.float32]}"
-        f" fp32, {FA_BWD_TOL[torch.bfloat16]} bf16)")
+        f" fp32, {FA_BWD_TOL[torch.bfloat16]} bf16); two calls equal bit for "
+        "bit on every case")
     return worst_abs, timing
 
 
@@ -3147,10 +3178,10 @@ def phase_ssm_bwd(dev, cases=SSM_BWD_CASES):
     """22b: the forward kernel's chunk states against the plain scan's, then
     ssm_scan_bwd against ssm_scan_bwd_ref on the same inputs (those chunk
     states, a random dy and dhT) from a random h0; a case with dt_rank > 0
-    takes B and C as x_proj's strided splits. Returns (the largest fp32
-    absolute error of a gradient, the fp32 inputs of Jamba's layer for
-    timing); the log gives each error over its gradient's largest
-    magnitude."""
+    takes B and C as x_proj's strided splits; a second call on the same
+    inputs gives the same bits. Returns (the largest fp32 absolute error of
+    a gradient, the fp32 inputs of Jamba's layer for timing); the log gives
+    each error over its gradient's largest magnitude."""
     from repro_torch.kernels.ssm_scan import kernel as SK
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref, ssm_scan_ref
     from repro_torch.models.layers import softplus
@@ -3170,6 +3201,9 @@ def phase_ssm_bwd(dev, cases=SSM_BWD_CASES):
         with uncounted():
             _, _, hc = SK.ssm_scan(dt, a, bm, cm, x, h0, with_chunks=True)
             got = SK.ssm_scan_bwd(dt, a, bm, cm, x, hc, dy, dhT)
+            again = SK.ssm_scan_bwd(dt, a, bm, cm, x, hc, dy, dhT)
+        assert all(torch.equal(x_, y_) for x_, y_ in zip(got, again)), \
+            f"ssm_scan bwd {case}: two calls differ"
         want_hc = ssm_scan_ref(dt, a, bm, cm, x, h0, chunk_states=True)[2]
         want = ssm_scan_bwd_ref(dt, a, bm, cm, x, hc, dy, dhT)
         sync(dev)
@@ -3195,7 +3229,8 @@ def phase_ssm_bwd(dev, cases=SSM_BWD_CASES):
             f"error / scale " + json.dumps(errs))
     log(f"phase 22b ssm_scan_bwd kernel ~ plain on {len(cases)} cases: max "
         f"error / scale {json.dumps(worst)} (tol {SSM_BWD_TOL[torch.float32]}"
-        f" fp32, {SSM_BWD_TOL[torch.bfloat16]} bf16)")
+        f" fp32, {SSM_BWD_TOL[torch.bfloat16]} bf16); two calls equal bit "
+        "for bit on every case")
     return worst_abs, timing
 
 
@@ -3324,6 +3359,10 @@ def _train_run(dev, card, phase, cfg, batch, seq, steps):
     return params, counts, row
 
 
+# ms a train step with the first backward kernels (fp32 FMAs), before
+# their redesign, on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section
+# 5): printed beside this run's
+EARLIER_STEP_MS = {"22d": 1528.0, "22e": 811.0}
 TRAIN_KERNELS = ("flash_attention_kernel", "flash_bwd_dq_kernel",
                  "flash_bwd_dkdv_kernel", "ssm_scan_kernel",
                  "ssm_scan_bwd_kernel")
@@ -3394,6 +3433,8 @@ def phase_train_tinyllama(dev, card, batch=4, seq=2048, steps=4):
     n_attn, _ = _mixers(cfg)
     assert counts["flash_attention"] == counts["flash_attention_bwd"] \
         == n_attn * steps, counts
+    log(f"phase 22d ms a step [{card}]: {row['ms_per_step']} (before the "
+        f"backward kernels' redesign: {EARLIER_STEP_MS['22d']})")
     row["profile"] = _profiled_step(dev, card, "22d", cfg, params, batch, seq)
     del params
     return counts, row
@@ -3412,6 +3453,8 @@ def phase_train_jamba(dev, card, batch=1, seq=2048, steps=2):
         counts
     assert counts["flash_attention"] == counts["flash_attention_bwd"] \
         == n_attn * steps, counts
+    log(f"phase 22e ms a step [{card}]: {row['ms_per_step']} (before the "
+        f"backward kernels' redesign: {EARLIER_STEP_MS['22e']})")
     del params
     return counts, row
 
@@ -3612,16 +3655,18 @@ def measure(env_timing, chain_timing, step_timing, flash_timing, ssm_timing,
     summed over the main-path runs (phases 4, 8, 9, 10, 12, 14 and
     15-18, graph replays included),
     `launches_per_request` a serving kernel's per served request in phases
-    12 and 14. The redesigned kernels (all five) also carry
+    12 and 14. The redesigned kernels (all seven) also carry
     `event_device_ms` (CUDA events with the host ahead of the card,
     `device_ms_events`) and, as text, what changed. The two backward
     kernels (phase 22's training path) are timed at tinyllama's 2048-token
-    layer (flash_attention_bwd, fp32, two launches a call, so its profiler
-    `ms` sums both) and Jamba's (ssm_scan_bwd, fp32), with CUDA-event
-    device ms, their plain versions and, for flash, autograd's backward of
-    `scaled_dot_product_attention` as the library call (its forward
-    outside the timing); their `launches` are phase 22's main paths
-    (22d-22f). Their bounds count five products and one exponential a pair
+    layer (flash_attention_bwd, fp32) and Jamba's (ssm_scan_bwd, fp32),
+    each two launches a call (dQ then dK / dV; the scan, then its sum over
+    blocks), so their profiler `ms` sums both, with their plain versions
+    and, for flash, autograd's backward of `scaled_dot_product_attention`
+    as the library call (its forward outside the timing); their `variants`
+    add flash at Jamba's hd-128 layer in fp32 and both layers in bf16, SDPA
+    beside each, and the scan in bf16; their `launches` are phase 22's main
+    paths (22d-22f). Their bounds count five products and one exponential a pair
     (flash, `flash_bwd_work`) and the bytes, one exponential and 12 fp32
     operations per state and step (scan, `ssm_bwd_work`). The env_step row times
     the call the main path makes, an `EnvStepPlan`'s, and the denoiser_step
@@ -3688,8 +3733,8 @@ def measure(env_timing, chain_timing, step_timing, flash_timing, ssm_timing,
     from repro_torch.kernels.ssm_scan import kernel as SK
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref
     flash_in, ssm_in = train_timing
-    bq, bk, bv, bdo = flash_in                  # fp32, (B, S, H, hd) ...
-    bqh, bkh, bvh, bdoh = (t.transpose(1, 2) for t in flash_in)
+    bq, bk, bv, bdo = flash_in["tinyllama"]     # fp32, (B, S, H, hd) ...
+    bqh, bkh, bvh, bdoh = (t.transpose(1, 2) for t in flash_in["tinyllama"])
     with uncounted():
         bo, blse = FK.flash_attention(bqh, bkh, bvh, causal=True,
                                       with_lse=True)
@@ -3738,10 +3783,10 @@ def measure(env_timing, chain_timing, step_timing, flash_timing, ssm_timing,
              "src/repro/models/blocks.py:284", sbwd_k, sbwd_p, None,
              sbwd_nb, 12 * sbwd_states,
              {k: v for k, v in sbwd_terms.items() if k != "bytes"},
-             "ssm_scan_bwd_kernel", 10)):
+             "ssm_scan_bwd_", 10)):
         call_ms = time_ms(k_fn, it)
         dev_ms, seen = kernel_device_ms(
-            k_fn, kname, per_call=2 if name == "flash_attention_bwd" else 1)
+            k_fn, kname, per_call=2 if name in BACKWARD_OF else 1)
         plain_ms = (time_ms(p_fn, 2, warmup=1) if name in BACKWARD_OF
                     else time_ms(p_fn, max(it // 4, 5)))
         terms = {"bytes": nb / HBM_BYTES_PER_S, **ops_s}
@@ -3764,12 +3809,18 @@ def measure(env_timing, chain_timing, step_timing, flash_timing, ssm_timing,
             rows[-1].update({"event_device_ms": device_ms_events(k_fn, it),
                              "redesigned": REDESIGNED[name]})
         if name in BACKWARD_OF:
-            rows[-1].update({"event_device_ms": device_ms_events(k_fn, it),
-                             "note": BACKWARD_OF[name]})
+            rows[-1]["note"] = BACKWARD_OF[name]
         if name == "flash_attention":
             rows[-1]["variants"] = flash_variants(flash_timing)
         if name == "ssm_scan":
             rows[-1]["variants"] = ssm_variants(ssm_timing)
+        if name == "flash_attention_bwd":
+            # SDPA's backward by CUDA events too: its call time carries
+            # autograd's host work, which hides its device time in bf16
+            rows[-1]["library_event_device_ms"] = device_ms_events(lib_fn, it)
+            rows[-1]["variants"] = flash_bwd_variants(flash_in)
+        if name == "ssm_scan_bwd":
+            rows[-1]["variants"] = ssm_bwd_variants(ssm_in)
         log(f"phase 6 timing {name} [{card}]: " + json.dumps(rows[-1]))
     return rows
 
@@ -3843,6 +3894,76 @@ def ssm_variants(inputs, it=20):
             "bound_terms_ms": {n: 1e3 * v for n, v in terms.items()},
             "bytes": nb})
     return out
+
+
+def flash_bwd_variants(shapes, it=10):
+    """flash_attention_bwd at Jamba's hd-128 layer in fp32 and at both
+    layers of `shapes` ({"tinyllama", "jamba": fp32 q, k, v, dO}) in bf16
+    (tinyllama's fp32 layer is the row itself): o and lse from the forward
+    kernel, device ms (CUDA events with the host ahead), call ms, the plain
+    version's ms, autograd's backward of `scaled_dot_product_attention` on
+    the same tensors (call ms and CUDA-event device ms), and the bound with
+    its terms."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    out = []
+    for shape, dtype in (("jamba", torch.float32),
+                         ("tinyllama", torch.bfloat16),
+                         ("jamba", torch.bfloat16)):
+        q, k, v, do = (t.to(dtype) for t in shapes[shape])
+        qh, kh, vh, doh = (t.transpose(1, 2) for t in (q, k, v, do))
+        with uncounted():
+            o, lse = FK.flash_attention(qh, kh, vh, causal=True,
+                                        with_lse=True)
+        k_fn = lambda: FK.flash_attention_bwd(  # noqa: E731
+            qh, kh, vh, o, lse, doh, causal=True)
+        p_fn = lambda: attention_bwd_ref(  # noqa: E731
+            qh, kh, vh, o, lse, doh, causal=True)
+        nb, flops, terms = flash_bwd_work(q, k, v)
+        bound, top = bound_of(terms)
+        lib_fn = _sdpa_bwd_call(q, k, v, do)
+        with uncounted():
+            out.append({
+                "shape": shape, "dtype": str(dtype).replace("torch.", ""),
+                "q": list(q.shape), "kv": list(k.shape),
+                "event_device_ms": device_ms_events(k_fn, it),
+                "call_ms": time_ms(k_fn, it),
+                "plain_ms": time_ms(p_fn, 2, warmup=1),
+                "library_ms": time_ms(lib_fn, it),
+                "library_event_device_ms": device_ms_events(lib_fn, it),
+                "bound_ms": 1e3 * bound, "bound_by": top,
+                "bound_terms_ms": {n: 1e3 * x for n, x in terms.items()},
+                "flops": flops, "bytes": nb})
+    return out
+
+
+def ssm_bwd_variants(inputs, it=10):
+    """ssm_scan_bwd at Jamba's layer in bf16 (`inputs`: the fp32 row's dt,
+    A, B, C, x, chunk states, dy, dhT; dt, B, C, x and dy cast, the chunk
+    states those of the bf16 forward from the same h0 = 0): device ms (CUDA
+    events with the host ahead), call ms, the plain version's ms and the
+    bound with its terms."""
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref
+    dt32, a, bm32, cm32, x32, _, dy32, dhT = inputs
+    dt, bm, cm, x, dy = (t.to(torch.bfloat16)
+                         for t in (dt32, bm32, cm32, x32, dy32))
+    with uncounted():
+        _, _, hc = SK.ssm_scan(dt, a, bm, cm, x, torch.zeros_like(dhT),
+                               with_chunks=True)
+    args = (dt, a, bm, cm, x, hc, dy, dhT)
+    k_fn = lambda: SK.ssm_scan_bwd(*args)  # noqa: E731
+    nb, terms = ssm_bwd_work(*args)
+    bound, top = bound_of(terms)
+    with uncounted():
+        return [{"dtype": "bfloat16", "shape": list(dt.shape),
+                 "N": a.shape[1], "event_device_ms": device_ms_events(k_fn, it),
+                 "call_ms": time_ms(k_fn, it),
+                 "plain_ms": time_ms(lambda: ssm_scan_bwd_ref(*args), 1,
+                                     warmup=0),
+                 "bound_ms": 1e3 * bound, "bound_by": top,
+                 "bound_terms_ms": {n: 1e3 * v for n, v in terms.items()},
+                 "bytes": nb}]
 
 
 def flash_variants(shapes, it=20):

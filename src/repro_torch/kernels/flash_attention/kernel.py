@@ -26,9 +26,14 @@ kernel: the caller pads nothing.
 `flash_attention(..., with_lse=True)` also returns each row's
 log-sum-exp, which `flash_attention_bwd` (`csrc/flash_attention_bwd.cu`,
 the counterpart of the reference's `flash_bwd`) recomputes P from. The
-backward is a first, simple kernel: fp32 FMAs on the CUDA cores, two
-launches (dQ and D, then dK and dV), no atomics; `bwd_smem_bytes` gives
-its shared memory.
+backward runs on the tensor cores too, in two launches on one body: a dQ
+kernel (rows are queries, K and V tiles streamed by TMA; it also writes D)
+and a dK / dV kernel (rows are keys, Q and dO tiles streamed, one CTA per
+query head); fp32 is 3×TF32 and bf16 native, as the forward. With GQA the
+dK / dV CTAs write per-head fp32 partials that the last CTA of each key
+block sums in head order (no float atomics: deterministic).
+`flash_bwd_plan` mirrors each (head dim, dtype, kernel)'s tiles and shared
+memory.
 
 For CPU tensors the wrappers take the plain versions (`ref.attention_ref`,
 `ref.attention_lse_ref`, `ref.attention_bwd_ref`); for CUDA tensors they
@@ -212,37 +217,115 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 flash_attention.launches = 0
 
 
-def bwd_smem_bytes(hd: int):
-    """(dQ kernel, dK / dV kernel) shared memory per CTA in bytes at head
-    dim `hd`: `Smem` in csrc/flash_attention_bwd.cu. Tiles of BQ query rows
-    and BK keys (64 and 64; 32 and 32 at hd 256), every operand staged as
-    fp32 rows of hd + 1 floats: Q, dO, K and V tiles, dS (and for dK / dV
-    also P) as rows of BK + 1, and lse and D per query row."""
+class FlashBwdPlan(NamedTuple):
+    """One backward kernel's plan at a (head dim, dtype): `rows` per CTA
+    (64 per consumer warpgroup: queries for dQ, keys for dK / dV), `BN`
+    rows of each streamed tile (K and V for dQ, Q and dO for dK / dV),
+    `stages` in the TMA ring, `rows_in_smem` whether the resident rows are
+    copied into shared memory, `splits` CTAs over the output columns,
+    `threads` (the consumer warpgroups and a producer warp, or with two
+    consumer warpgroups a producer warpgroup that hands its registers to
+    them) and `smem_bytes` per CTA."""
+    rows: int
+    BN: int
+    stages: int
+    rows_in_smem: bool
+    splits: int
+    threads: int
+    smem_bytes: int
+
+
+#: (rows, BN, stages, rows_in_smem, splits) by (dtype, head dim, kernel:
+#: 0 = dQ, 1 = dK / dV): `Plan` in csrc/flash_attention_bwd.cu
+_BWD_PLANS = {
+    (torch.float32, 64, 0): (128, 64, 2, True, 1),
+    (torch.float32, 128, 0): (128, 32, 2, False, 1),
+    (torch.float32, 256, 0): (64, 32, 1, False, 2),
+    (torch.bfloat16, 64, 0): (128, 64, 2, True, 1),
+    (torch.bfloat16, 128, 0): (128, 64, 2, True, 1),
+    (torch.bfloat16, 256, 0): (64, 64, 2, True, 2),
+    (torch.float32, 64, 1): (128, 32, 2, True, 1),
+    (torch.float32, 128, 1): (128, 32, 2, False, 1),
+    (torch.float32, 256, 1): (64, 32, 1, False, 2),
+    (torch.bfloat16, 64, 1): (128, 64, 2, True, 1),
+    (torch.bfloat16, 128, 1): (128, 32, 2, True, 1),
+    (torch.bfloat16, 256, 1): (64, 32, 2, True, 2),
+}
+
+
+def flash_bwd_plan(hd: int, dtype, which: int) -> FlashBwdPlan:
+    """The dQ (`which` 0) or dK / dV (1) kernel's plan: `Layout` in
+    csrc/flash_attention_bwd.cu, region for region, each on 1024 bytes:
+    the two resident row blocks (padded rows, when copied), `stages` pairs
+    of streamed tiles, for dK / dV each stage's lse and D, for fp32 the two
+    tiles' lo parts and the transposed hi and lo parts of the tiles the
+    second products read (one for dQ, two for dK / dV, the CTA's output
+    columns only); then two mbarriers per stage, a flag and 1024 bytes to
+    align the base. Raises ValueError naming what the kernels do not take
+    or what does not fit."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"flash_attention_bwd kernel: float32 or bfloat16 "
+                         f"inputs, not {dtype}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd kernel: head_dim {hd} not in "
                          f"{HEAD_DIMS}")
-    bq = bk = 32 if hd == 256 else 64
-    rows = (2 * bq + 2 * bk) * (hd + 1)
-    return (4 * (rows + bq * (bk + 1) + 2 * bq),
-            4 * (rows + 2 * bq * (bk + 1) + 2 * bq))
+    rows, bn, stages, in_smem, splits = _BWD_PLANS[(dtype, hd, which)]
+    es = 4 if dtype == torch.float32 else 2
+
+    def align1k(n):
+        return -(-n // 1024) * 1024
+    tile = bn * hd * es
+    ttile = hd // splits * bn * 4
+    smem = 2 * (align1k(rows * (hd + 16 // es) * es) if in_smem else 0)
+    smem += 2 * stages * tile
+    if which == 1:
+        smem += align1k(2 * stages * bn * 4)
+    if es == 4:
+        smem += 2 * tile + (4 if which == 1 else 2) * ttile
+    smem += 16 * stages + 16 + 1024
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"flash_attention_bwd kernel: {smem} bytes of "
+                         f"shared memory at head_dim {hd} in {dtype}, over "
+                         f"{SMEM_LIMIT}")
+    # two consumer warpgroups come with a producer warpgroup, one with a
+    # producer warp
+    threads = rows // 64 * 128 + (128 if rows == 128 else 32)
+    return FlashBwdPlan(rows=rows, BN=bn, stages=stages, rows_in_smem=in_smem,
+                        splits=splits, threads=threads, smem_bytes=smem)
 
 
 @functools.lru_cache(maxsize=None)
 def _bwd_lib():
     lib = KB.load("flash_attention_bwd")
     lib.flash_attention_bwd_launch.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 15
+        [ctypes.c_void_p] * 13 + [ctypes.c_longlong] * 15
         + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
     lib.flash_attention_bwd_launch.restype = ctypes.c_int
-    lib.flash_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
-    lib.flash_attention_bwd_smem_bytes.restype = ctypes.c_int
-    for hd in HEAD_DIMS:
-        got = tuple(lib.flash_attention_bwd_smem_bytes(hd, w) for w in (0, 1))
-        if got != bwd_smem_bytes(hd):
+    lib.flash_attention_bwd_plan.argtypes = [ctypes.c_int] * 4
+    lib.flash_attention_bwd_plan.restype = ctypes.c_int
+    for (dtype, hd, which) in _BWD_PLANS:
+        plan = flash_bwd_plan(hd, dtype, which)
+        got = [lib.flash_attention_bwd_plan(hd, _DTYPES[dtype], which, f)
+               for f in range(6)]
+        want = [plan.rows, plan.BN, plan.stages, int(plan.rows_in_smem),
+                plan.splits, plan.smem_bytes]
+        if got != want:
             raise RuntimeError("csrc/flash_attention_bwd.cu and "
-                               "bwd_smem_bytes disagree on the shared memory: "
-                               f"{got} != {bwd_smem_bytes(hd)}")
+                               f"flash_bwd_plan disagree at {dtype}, hd {hd}, "
+                               f"kernel {which}: {got} != {want}")
     return lib
+
+
+def bwd_scratch(B: int, H: int, KV: int, T: int, hd: int, dtype):
+    """The dK / dV kernel's scratch with G = H / KV > 1 query heads per KV
+    head: (the shape of each of its fp32 dK and dV partials, (B, T, H, hd),
+    the number of its zeroed last-CTA counters, one per (batch row, KV
+    head, key block, column split)); None with G = 1, where each CTA writes
+    dK and dV itself."""
+    if H == KV:
+        return None
+    plan = flash_bwd_plan(hd, dtype, 1)
+    return (B, T, H, hd), B * KV * -(-T // plan.rows) * plan.splits
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
@@ -252,7 +335,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     (q, o, do: (B, H, S, hd); k, v: (B, KV, T, hd); lse: (B, H, S) fp32).
     Returns the gradients in q's dtype, head-major views of contiguous
     (B, S, H, hd) and (B, T, KV, hd) tensors on the card. q, k, v, o and do
-    may have any strides with a unit stride along hd."""
+    may have any strides with a unit stride along hd (on the card, q, k, v
+    and do start on 16 bytes with strides of multiples of 16 bytes, as TMA
+    reads them)."""
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                  window=window)
@@ -261,10 +346,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                          f"{q.device}")
     B, H, S, hd = q.shape
     KV, T = k.shape[1], k.shape[2]
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"flash_attention_bwd kernel: float32 or bfloat16 "
-                         f"inputs, not {q.dtype}")
-    bwd_smem_bytes(hd)                 # raises on a head dim it does not take
+    flash_bwd_plan(hd, q.dtype, 1)     # raises on what it does not take
     for name, t, shape, dtype in (
             ("k", k, (B, KV, T, hd), q.dtype), ("v", v, (B, KV, T, hd), q.dtype),
             ("o", o, (B, H, S, hd), q.dtype), ("do", do, (B, H, S, hd), q.dtype),
@@ -283,21 +365,32 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                              f"unit stride along head_dim")
     if not lse.is_contiguous():
         raise ValueError("flash_attention_bwd kernel: lse must be contiguous")
-    dev = q.device
+    dev, es = q.device, q.element_size()
     dq = torch.empty((B, S, H, hd), dtype=q.dtype, device=dev)
     dk = torch.empty((B, T, KV, hd), dtype=q.dtype, device=dev)
     dv = torch.empty_like(dk)
     dsum = torch.empty((B, H, S), dtype=torch.float32, device=dev)
-    strides = [s for t in (q, k, v, o, do) for s in t.stride()[:3]]
+    pdk = pdv = counters = None
+    scratch = bwd_scratch(B, H, KV, T, hd, q.dtype)
+    if scratch is not None:
+        pdk = torch.empty(scratch[0], dtype=torch.float32, device=dev)
+        pdv = torch.empty_like(pdk)
+        counters = torch.zeros(scratch[1], dtype=torch.int32, device=dev)
+    tma = {name: _strides(name, t, es)     # read by TMA
+           for name, t in (("q", q), ("k", k), ("v", v), ("do", do))}
+    strides = [*tma["q"], *tma["k"], *tma["v"], *o.stride()[:3], *tma["do"]]
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = _bwd_lib().flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), *strides, B, H, KV, S, T, hd, _DTYPES[q.dtype],
-        int(causal), int(window), float(hd) ** -0.5,
-        KB.raw_stream(q.get_device()))
+        dv.data_ptr(), ptr(pdk), ptr(pdv), ptr(counters), *strides, B, H, KV,
+        S, T, hd, _DTYPES[q.dtype], int(causal), int(window),
+        float(hd) ** -0.5, KB.raw_stream(q.get_device()))
     if err != 0:
-        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(
+            f"flash_attention_bwd kernel launch failed: error {err} (a CUDA "
+            f"error; 10000: libcuda offers no cuTensorMapEncodeTiled; "
+            f"10001 + n: it refused a map with CUresult n)")
     flash_attention_bwd.launches += 1
     return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
 

@@ -20,9 +20,12 @@ shared memory.
 of every 64-step chunk, the checkpoints `ssm_scan_bwd` (`csrc/
 ssm_scan_bwd.cu`, the gradient of the scan) rebuilds the states from, one
 chunk at a time, as the reference's `jax.checkpoint`-ed chunks do. The
-backward is a first, simple kernel: one thread per (channel, state), the
-chunk's 64 states rebuilt in registers, then the reverse recurrence;
-`bwd_smem_bytes` gives its shared memory.
+backward has the forward's block (32 channels x 8 segments of 8 steps):
+per chunk it rebuilds the states with the forward's fold, scan and sweep,
+then runs the reverse recurrence for G the same way from the right with the
+same a_t (one exponential per state and step); dB and dC leave as one
+partial per block of 32 channels, summed over the blocks by a second launch
+in a fixed order. `ssm_bwd_plan` gives its launch and shared memory.
 
 For CPU tensors the wrappers take the plain versions (`ref.ssm_scan_ref`,
 `ref.ssm_scan_bwd_ref`); for CUDA tensors they launch the kernels or raise.
@@ -193,37 +196,65 @@ def ssm_scan(dt, a, bm, cm, x, h0, *, with_chunks: bool = False):
 
 ssm_scan.launches = 0
 
-#: the backward kernel's block: threads, warps
-BWD_THREADS = 256
-_BWD_WARPS = BWD_THREADS // 32
+class SSMBwdPlan(NamedTuple):
+    """How the backward covers a call: a grid of (I / channels, B) blocks
+    of `threads`, one resident per SM, `smem_bytes` each; `partials` is the
+    shape of the fp32 dB and dC partials the blocks write, (blocks, B, N,
+    S), which the second launch sums over the blocks."""
+    grid: tuple
+    threads: int
+    smem_bytes: int
+    partials: tuple
 
 
-def bwd_smem_bytes(N: int) -> int:
-    """Shared memory of one block of the backward kernel, bytes:
-    `smem_floats` in csrc/ssm_scan_bwd.cu. A block holds 256 / N channels;
-    per 64-step chunk it stages dt, x, dy, ddt and dx (64 x channels), B
-    and C (64 x N) and the cross-warp partials of dC and dB (64 x 8 warps x
-    N x 2), all fp32."""
+def bwd_smem_bytes(N: int, elt: int) -> int:
+    """Shared memory of one block of the backward kernel, bytes, for state
+    size N and element size `elt`: `bwd_smem_bytes` in
+    csrc/ssm_scan_bwd.cu. Per stage a dt, an x and a dy tile and a B and a
+    C tile (segments as the forward's) and the chunk's checkpoints (32 rows
+    of N + 4 floats); two stages; the ddt and dx tiles; A', A and the G
+    carry (32 rows of N + 4 floats each); dA's per-thread partials (N x 256
+    floats); the cross-warp dB and dC sums (8 warps x 2 x N x 64 floats)."""
     if N not in STATE_DIMS:
         raise ValueError(f"ssm_scan_bwd kernel: state size {N} not in "
                          f"{STATE_DIMS}")
-    return 4 * (5 * CHUNK * (BWD_THREADS // N) + 2 * CHUNK * N
-                + 2 * CHUNK * _BWD_WARPS * N)
+    x_seg = SSM_RUN * SSM_CHANNELS * elt + _PAD
+    bc_seg = SSM_RUN * N * elt + _PAD
+    rows = SSM_CHANNELS * (N + 4) * 4
+    stage = SSM_SEGMENTS * (3 * x_seg + 2 * bc_seg) + rows
+    return (2 * stage + 2 * SSM_SEGMENTS * x_seg + 3 * rows
+            + N * SSM_THREADS * 4 + SSM_THREADS // 32 * 2 * N * CHUNK * 4)
+
+
+def ssm_bwd_plan(B: int, S: int, I: int, N: int, dtype) -> SSMBwdPlan:
+    """The backward's launch over dt, x (B, S, I) with state size N in
+    `dtype`; raises ValueError where `ssm_plan` does or where the shared
+    memory does not fit."""
+    ssm_plan(B, S, I, N, dtype)
+    smem = bwd_smem_bytes(N, 4 if dtype == torch.float32 else 2)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"ssm_scan_bwd kernel: {smem} bytes of shared "
+                         f"memory per block, over {SMEM_LIMIT}")
+    blocks = -(-I // SSM_CHANNELS)
+    return SSMBwdPlan(grid=(blocks, B), threads=SSM_THREADS, smem_bytes=smem,
+                      partials=(blocks, B, N, S))
 
 
 @functools.lru_cache(maxsize=None)
 def _bwd_lib():
     lib = KB.load("ssm_scan_bwd")
     lib.ssm_scan_bwd_launch.argtypes = (
-        [ctypes.c_void_p] * 14 + [ctypes.c_longlong] * 8
+        [ctypes.c_void_p] * 17 + [ctypes.c_longlong] * 8
         + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.ssm_scan_bwd_launch.restype = ctypes.c_int
-    lib.ssm_scan_bwd_smem_bytes.argtypes = [ctypes.c_int]
+    lib.ssm_scan_bwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.ssm_scan_bwd_smem_bytes.restype = ctypes.c_int
     for N in STATE_DIMS:
-        if lib.ssm_scan_bwd_smem_bytes(N) != bwd_smem_bytes(N):
-            raise RuntimeError("csrc/ssm_scan_bwd.cu and bwd_smem_bytes "
-                               "disagree on the shared-memory layout")
+        for dtype, code in _DTYPES.items():
+            if lib.ssm_scan_bwd_smem_bytes(N, code) != \
+                    bwd_smem_bytes(N, dtype.itemsize):
+                raise RuntimeError("csrc/ssm_scan_bwd.cu and bwd_smem_bytes "
+                                   "disagree on the shared-memory layout")
     return lib
 
 
@@ -233,9 +264,9 @@ def ssm_scan_bwd(dt, a, bm, cm, x, hc, dy, dhT):
     state's `dhT` (B, I, N): returns (ddt, da, dbm, dcm, dx, dh0), ddt, dbm,
     dcm and dx contiguous in dt's dtype, da (I, N) and dh0 (B, I, N) fp32.
     dt, x, bm and cm as `ssm_scan` takes them; dy is made contiguous. On the
-    card dB and dC come from the kernel as one partial per block of
-    channels and dA as one per batch row; the fixed-order `torch.sum` over
-    those axes here finishes them (deterministic)."""
+    card the kernel writes dB and dC as one partial per block of 32
+    channels and dA as one per batch row, and its second launch sums them
+    in a fixed order (deterministic)."""
     if dt.device.type == "cpu":
         return ssm_scan_bwd_ref(dt, a, bm, cm, x, hc, dy, dhT)
     if dt.device.type != "cuda":
@@ -246,27 +277,30 @@ def ssm_scan_bwd(dt, a, bm, cm, x, hc, dy, dhT):
         raise ValueError(f"ssm_scan_bwd kernel: dy must be {dt.dtype} of "
                          f"shape {(B, S, I)}; got {dy.dtype} "
                          f"{tuple(dy.shape)}")
+    plan = ssm_bwd_plan(B, S, I, N, dt.dtype)
     dev, f32 = dt.device, torch.float32
-    blocks = -(-I // (BWD_THREADS // N))
     ddt = torch.empty((B, S, I), dtype=dt.dtype, device=dev)
     dx = torch.empty_like(ddt)
-    pdb = torch.empty((blocks, B, S, N), dtype=f32, device=dev)
+    dbm = torch.empty((B, S, N), dtype=dt.dtype, device=dev)
+    dcm = torch.empty_like(dbm)
+    da = torch.empty((I, N), dtype=f32, device=dev)
+    dh0 = torch.empty((B, I, N), dtype=f32, device=dev)
+    pdb = torch.empty(plan.partials, dtype=f32, device=dev)
     pdc = torch.empty_like(pdb)
     pda = torch.empty((B, I, N), dtype=f32, device=dev)
-    dh0 = torch.empty_like(pda)
     strides = [s for t in (dt, x, bm, cm) for s in t.stride()[:2]]
     err = _bwd_lib().ssm_scan_bwd_launch(
         dt.data_ptr(), a.data_ptr(), bm.data_ptr(), cm.data_ptr(),
         x.data_ptr(), hc.data_ptr(), dy.data_ptr(), dhT.data_ptr(),
-        ddt.data_ptr(), dx.data_ptr(), pdb.data_ptr(), pdc.data_ptr(),
-        pda.data_ptr(), dh0.data_ptr(), *strides, B, S, I, N,
-        _DTYPES[dt.dtype], KB.raw_stream(dt.get_device()))
+        ddt.data_ptr(), dx.data_ptr(), dbm.data_ptr(), dcm.data_ptr(),
+        da.data_ptr(), dh0.data_ptr(), pdb.data_ptr(), pdc.data_ptr(),
+        pda.data_ptr(), *strides, B, S, I, N, _DTYPES[dt.dtype],
+        KB.raw_stream(dt.get_device()))
     if err != 0:
         raise RuntimeError(f"ssm_scan_bwd kernel launch failed: CUDA error "
                            f"{err}")
     ssm_scan_bwd.launches += 1
-    return (ddt, pda.sum(0), pdb.sum(0).to(dt.dtype), pdc.sum(0).to(dt.dtype),
-            dx, dh0)
+    return ddt, da, dbm, dcm, dx, dh0
 
 
 ssm_scan_bwd.launches = 0

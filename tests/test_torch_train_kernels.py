@@ -127,10 +127,63 @@ def test_flash_forward_without_grad_is_the_plain_call():
 
 
 def test_flash_backward_smem_fits_and_refuses_other_head_dims():
-    for hd in TFK.HEAD_DIMS:
-        assert max(TFK.bwd_smem_bytes(hd)) <= 227 * 1024
-    with pytest.raises(ValueError, match="head_dim 96"):
-        TFK.bwd_smem_bytes(96)
+    for dtype in (torch.float32, torch.bfloat16):
+        for hd in TFK.HEAD_DIMS:
+            for which in (0, 1):
+                assert TFK.flash_bwd_plan(hd, dtype, which).smem_bytes \
+                    <= 227 * 1024
+        with pytest.raises(ValueError, match="head_dim 96"):
+            TFK.flash_bwd_plan(96, dtype, 0)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        TFK.flash_bwd_plan(64, torch.float16, 1)
+
+
+BWD_PLAN_KEYS = [(dtype, hd, which) for dtype in (torch.float32,
+                                                  torch.bfloat16)
+                 for hd in (64, 128, 256) for which in (0, 1)]
+
+
+@pytest.mark.parametrize("key", BWD_PLAN_KEYS,
+                         ids=[f"{str(d)[6:]}-hd{h}-{'dkdv' if w else 'dq'}"
+                              for d, h, w in BWD_PLAN_KEYS])
+def test_flash_backward_plan_tiles_are_wgmma_shapes(key):
+    """Each plan's tiles are shapes `wgmma` takes: 64 rows a consumer
+    warpgroup, streamed tiles of 32 or 64 rows (N of the first products,
+    and whole 32-key chunks of the transposed fp32 parts), output columns in
+    64-column blocks (N of the second products), tiles on 1024 bytes for
+    the 128-byte swizzle; the accumulators a thread holds (S and dP, and
+    dQ or dK and dV) stay at 160 registers or under."""
+    dtype, hd, which = key
+    plan = TFK.flash_bwd_plan(hd, dtype, which)
+    es = 4 if dtype == torch.float32 else 2
+    assert plan.rows in (64, 128)
+    assert plan.threads == plan.rows * 2 + (128 if plan.rows == 128 else 32)
+    assert plan.BN in (32, 64) and plan.BN % (8 if es == 4 else 16) == 0
+    cols = hd // plan.splits
+    assert hd % plan.splits == 0 and cols % 64 == 0 and cols <= 128
+    assert plan.BN * hd * es % 1024 == 0 and cols * plan.BN * 4 % 1024 == 0
+    assert plan.stages in (1, 2)
+    accumulators = plan.BN + cols // 2 * (2 if which else 1)
+    assert accumulators <= 160, accumulators
+    # bf16 reads the resident rows' fragments from shared memory
+    assert plan.rows_in_smem or es == 4
+
+
+@pytest.mark.parametrize("B,H,KV,T,hd", [(1, 32, 4, 2048, 64),
+                                          (2, 8, 2, 333, 64),
+                                          (1, 16, 8, 512, 256),
+                                          (1, 12, 12, 1500, 64)])
+def test_flash_backward_scratch_shapes(B, H, KV, T, hd):
+    """With G > 1 the dK / dV kernel writes (B, T, H, hd) fp32 partials and
+    counts its CTAs on one counter per (batch row, KV head, key block,
+    column split); with G = 1 it needs neither."""
+    for dtype in (torch.float32, torch.bfloat16):
+        got = TFK.bwd_scratch(B, H, KV, T, hd, dtype)
+        if H == KV:
+            assert got is None
+            continue
+        plan = TFK.flash_bwd_plan(hd, dtype, 1)
+        assert got == ((B, T, H, hd), B * KV * -(-T // plan.rows) * plan.splits)
 
 
 # ----------------------------------------------------------------- scan
@@ -212,9 +265,111 @@ def test_scan_bwd_ref_holds_one_chunk_of_states(monkeypatch):
 
 def test_scan_backward_smem_fits_and_refuses_other_states():
     for n in TSK.STATE_DIMS:
-        assert TSK.bwd_smem_bytes(n) <= 227 * 1024
+        for elt in (4, 2):
+            assert TSK.bwd_smem_bytes(n, elt) <= 227 * 1024
     with pytest.raises(ValueError, match="state size 8"):
-        TSK.bwd_smem_bytes(8)
+        TSK.bwd_smem_bytes(8, 4)
+    with pytest.raises(ValueError, match="state size 8"):
+        TSK.ssm_bwd_plan(1, 64, 32, 8, torch.float32)
+
+
+@pytest.mark.parametrize("B,S,I,N", [(1, 2048, 8192, 16), (2, 300, 520, 4),
+                                     (1, 2000, 8192, 16), (2, 129, 518, 16)])
+def test_scan_backward_plan_grid_and_partials(B, S, I, N):
+    """The forward's block (32 channels x 8 segments): one block per 32
+    channels and batch row, and dB / dC partials of one row of (N, S) per
+    block, I / 32 of them (half of the earlier I / 16)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = TSK.ssm_bwd_plan(B, S, I, N, dtype)
+        blocks = -(-I // 32)
+        assert plan.grid == (blocks, B) and plan.threads == 256
+        assert plan.partials == (blocks, B, N, S)
+        assert plan.smem_bytes == TSK.bwd_smem_bytes(N, dtype.itemsize)
+
+
+def _segmented_scan_bwd(dt, a, bm, cm, x, hc, dy, dhT, P=8, R=8):
+    """The backward kernel's order, written out in torch (fp32): per 64-step
+    chunk, last first, the runs of R steps of the P segments rebuild their
+    states (cumulative pairs, the checkpoint carried through the segments,
+    h = A h_in + B), fold the reverse recurrence into (prod a, Q) pairs, take
+    their G_in from the segment on the right (the chunk's carry into the
+    last), and sweep back; the a_t of the rebuild serve both passes."""
+    B, S, I = dt.shape
+    N = a.shape[1]
+    L = P * R
+    Sp = -(-S // L) * L
+    pad = lambda t: torch.cat(  # noqa: E731
+        [t, t.new_zeros((t.shape[0], Sp - S) + tuple(t.shape[2:]))], 1)
+    dtp, xp, bp, cp, dyp = (pad(t) for t in (dt, x, bm, cm, dy))
+    e_all = torch.exp2(dtp[..., None] * (a * 1.4426950408889634))
+    u_all = dtp * xp
+    ddt = torch.zeros((B, Sp, I)); dxo = torch.zeros((B, Sp, I))
+    dbm = torch.zeros((B, Sp, N)); dcm = torch.zeros((B, Sp, N))
+    da = torch.zeros((I, N))
+    g = dhT.clone()
+    for k in reversed(range(Sp // L)):
+        sl = slice(k * L, (k + 1) * L)
+        e = e_all[:, sl].reshape(B, P, R, I, N)
+        ub = (u_all[:, sl, :, None] * bp[:, sl, None, :]).reshape(B, P, R, I, N)
+        c = (dyp[:, sl, :, None] * cp[:, sl, None, :]).reshape(B, P, R, I, N)
+        ca, cb = e.clone(), ub.clone()
+        for r in range(1, R):
+            ca[:, :, r] = ca[:, :, r - 1] * e[:, :, r]
+            cb[:, :, r] = e[:, :, r] * cb[:, :, r - 1] + ub[:, :, r]
+        hin = [hc[:, k]]
+        for s in range(1, P):
+            hin.append(ca[:, s - 1, R - 1] * hin[-1] + cb[:, s - 1, R - 1])
+        hin = torch.stack(hin, 1)                        # (B, P, I, N)
+        h = ca * hin[:, :, None] + cb
+        q = c[:, :, R - 1]
+        for r in range(R - 2, -1, -1):
+            q = e[:, :, r + 1] * q + c[:, :, r]
+        pa, pb = ca[:, :, R - 1], e[:, :, 0] * q         # G_in -> a_0 G_0
+        gin = [None] * P
+        gin[P - 1] = g
+        for s in range(P - 2, -1, -1):
+            gin[s] = pa[:, s + 1] * gin[s + 1] + pb[:, s + 1]
+        g = pa[:, 0] * gin[0] + pb[:, 0]
+        dt_c = dtp[:, sl].reshape(B, P, R, I)
+        x_c = xp[:, sl].reshape(B, P, R, I)
+        b_c = bp[:, sl].reshape(B, P, R, N)
+        dy_c = dyp[:, sl].reshape(B, P, R, I)
+        gv = torch.stack(gin, 1)                         # (B, P, I, N)
+        du = torch.zeros((B, P, R, I)); dtt = torch.zeros((B, P, R, I))
+        vb = torch.zeros((B, P, R, N)); vc = torch.zeros((B, P, R, N))
+        for r in range(R - 1, -1, -1):
+            gv = gv + c[:, :, r]
+            hp = h[:, :, r - 1] if r else hin
+            gda = gv * hp * e[:, :, r]
+            da += (gda * dt_c[:, :, r, :, None]).sum((0, 1))
+            du[:, :, r] = (gv * b_c[:, :, r, None, :]).sum(-1)
+            dtt[:, :, r] = (gda * a).sum(-1)
+            vb[:, :, r] = (gv * (dt_c[:, :, r] * x_c[:, :, r])[..., None]).sum(2)
+            vc[:, :, r] = (dy_c[:, :, r, :, None] * h[:, :, r]).sum(2)
+            gv = gv * e[:, :, r]
+        ddt[:, sl] = (du * x_c + dtt).reshape(B, L, I)
+        dxo[:, sl] = (du * dt_c).reshape(B, L, I)
+        dbm[:, sl] = vb.reshape(B, L, N)
+        dcm[:, sl] = vc.reshape(B, L, N)
+    return ddt[:, :S], da, dbm[:, :S], dcm[:, :S], dxo[:, :S], g
+
+
+@pytest.mark.parametrize("S", [5, 64, 129, 200])
+def test_segmented_scan_bwd_order_matches_plain_backward(S):
+    """The backward kernel's segmented reverse scan (one a_t per state and
+    step for both passes, G_in from the right) against the plain backward,
+    fp32, at GRAD_TOL of each gradient's largest magnitude."""
+    args, dy, dh = _scan_inputs(2, S, 6, 4, 31 + S, True)
+    targs = [torch.from_numpy(a) for a in args]
+    _, _, hc = TSR.ssm_scan_ref(*targs, chunk_states=True)
+    dt, a, bm, cm, x, _ = targs
+    want = TSR.ssm_scan_bwd_ref(dt, a, bm, cm, x, hc, torch.from_numpy(dy),
+                                torch.from_numpy(dh))
+    got = _segmented_scan_bwd(dt, a, bm, cm, x, hc, torch.from_numpy(dy),
+                              torch.from_numpy(dh))
+    for name, gt, wt in zip(("ddt", "da", "dbm", "dcm", "dx", "dh0"), got,
+                            want):
+        _rel_close(gt.numpy(), wt.numpy(), GRAD_TOL, name)
 
 
 def test_refuse_grad_raises_only_when_autograd_needs_a_backward():

@@ -203,6 +203,23 @@ runs, one line per result:
    two train steps each, kernels against the plain versions on the
    loss and grad norm; (g) env_step, denoiser_chain and denoiser_step
    raise on CUDA inputs that require grad (they have no backward);
+23. the multi-device and launch layer (ROADMAP item 15), last: (a) the
+   sharded backend (`ExecSpec(backend="sharded")`) on paper-8srv at
+   B = 256, fifo and ddpm, a whole episode collected: one shard equal to
+   fused in every tensor, a mesh of 4 shards on the one card equal to the
+   four fused runs of 64 with `split_generator`'s children (and to fused
+   on all 256 for fifo), one env_step launch a decision a shard; ms a
+   decision of fused, 1 and 4 shards in rotating rounds; (b)
+   `launch.steps.build_case` for tinyllama-1.1b at full width on a
+   1-device mesh (bf16 compute, remat, fp32 params): a train step at
+   batch 4 x 2048 with microbatches 1 and 2 from the same params (loss
+   within 2e-3 relative, every param within 5e-3), 44 + 22 flash launches
+   a microbatch, ms a step, peak memory, idle share, then a prefill at
+   1 x 2048 and a decode step; (c) `launch.serve.run`, the serving CLI's
+   loop, at full width with qwen2-1.5b and tinyllama-1.1b on 4 servers,
+   12 tasks, fifo and eat: every task completes, one flash launch per
+   attention layer of every prefill, and the fifo run's records and tokens
+   equal to the same run on the plain attention;
 then the phase 6 rows (the two backward kernels among them), a `kernels`
 JSON line after the card's `nvidia-smi` line, and
 `{"ok": true, "device": {...}}` as the last line.
@@ -3558,6 +3575,294 @@ def phase_training(dev, card, env_timing, chain_timing, step_timing):
     return errs, (flash_in, ssm_in), launches
 
 
+# ------------------------------------ phase 23 (item 15: devices, launch)
+SHARDS = 4                 # 23a's mesh: this many shards on the one card
+SERVE_CLI_ARCHS = ("qwen2-1.5b", "tinyllama-1.1b")
+
+
+def _cat_rollouts(parts):
+    """Rollout results of the batch's slices, concatenated on axis 0."""
+    from repro_torch.core import env as EV
+    from repro_torch.core import rollout as RO
+    cat = lambda xs: torch.cat(list(xs))  # noqa: E731
+    tr = None
+    if parts[0].transitions is not None:
+        ts = [p.transitions for p in parts]
+        tr = RO.Transitions(
+            *(cat(getattr(t, f) for t in ts)
+              for f in RO.Transitions._fields[:-1]),
+            extras={k: cat(t.extras[k] for t in ts) for k in ts[0].extras})
+    return RO.RolloutResult(
+        metrics={k: cat(p.metrics[k] for p in parts)
+                 for k in parts[0].metrics},
+        final_state=EV.EnvState(*(cat(x) for x in zip(
+            *(p.final_state for p in parts)))),
+        transitions=tr)
+
+
+def phase_sharded(dev, card, actor, B=256, pairs=5):
+    """23a: `ExecSpec(backend="sharded")` on paper-8srv at B = B, fifo and
+    ddpm (`actor`), a whole episode collected. One shard (the card's one
+    device) equals `fused` in every tensor; a mesh of SHARDS shards on
+    this card equals the SHARDS `fused` runs of B / SHARDS envs with the
+    children of `split_generator`, and for fifo `fused` on all B. Each
+    sharded run is counted (counts set to 0 just before, read just after):
+    one env_step launch a decision a shard, one chain a ddpm decision a
+    shard. Then `pairs` rounds of fused, 1 shard and SHARDS shards in
+    rotating order (host clock, synchronised, no collection): medians of
+    ms per decision. Returns launches."""
+    from repro_torch import api
+    from repro_torch.actors.policies import actor_policy
+    from repro_torch.api.simulator import split_generator
+    from repro_torch.core import agent as AG
+    from repro_torch.core import rollout as RO
+    from repro_torch.launch.mesh import make_data_mesh
+    ecfg, traces = cell_setup(dev, "paper-8srv", 8, 0.1, B)
+    T, b = ecfg.max_steps, B // SHARDS
+    ways = {"fused": api.rollout_fn_for(api.ExecSpec()),
+            "sharded_1": api.rollout_fn_for(api.ExecSpec(backend="sharded")),
+            f"sharded_{SHARDS}": api.rollout_fn_for(
+                api.ExecSpec(backend="sharded"),
+                mesh=make_data_mesh((dev,) * SHARDS))}
+    launches = {}
+    for sampler in ("fifo", "ddpm"):
+        if sampler == "fifo":
+            pol, params = RO.fifo_policy(ecfg), {}
+        else:
+            pol = actor_policy(ecfg, AG.AgentConfig(), sampler="ddpm",
+                               device=dev)
+            params = actor
+
+        def run(way, collect=True, generator=None, tr=traces):
+            return ways[way](ecfg, tr, pol, params, num_steps=T,
+                             collect=collect, device=dev,
+                             generator=generator or torch.Generator(
+                                 device=dev).manual_seed(23))
+        fused = run("fused")
+        counts = {}
+        for way, n in (("sharded_1", 1), (f"sharded_{SHARDS}", SHARDS)):
+            got, c, secs = _run_counted(dev, lambda: run(way))
+            assert c["env_step"] == n * T, (way, c)
+            assert c["denoiser_chain"] == (n * T if sampler == "ddpm"
+                                           else 0), (way, c)
+            add_counts(counts, c)
+            if n == 1 or sampler == "fifo":
+                assert _rollouts_equal(got, fused), f"23a {sampler} {way}"
+            if n > 1:
+                kids = split_generator(torch.Generator(
+                    device=dev).manual_seed(23), n)
+                parts = [run("fused", generator=kids[s], tr={
+                    k: v[s * b:(s + 1) * b] for k, v in traces.items()})
+                    for s in range(n)]
+                assert _rollouts_equal(got, _cat_rollouts(parts)), \
+                    f"23a {sampler} {way}: not the per-shard fused runs"
+        add_counts(launches, counts)
+        for way in ways:                         # each loop built, captured
+            run(way, collect=False)
+        times = {way: [] for way in ways}
+        order = list(ways)
+        for i in range(pairs):
+            for way in order[i % 3:] + order[:i % 3]:
+                sync(dev)
+                t0 = time.perf_counter()
+                run(way, collect=False)
+                sync(dev)
+                times[way].append(1e3 * (time.perf_counter() - t0) / T)
+        m = fused.metrics
+        log("phase 23a sharded rollout " + json.dumps({
+            "card": card, "cell": "paper-8srv", "sampler": sampler, "B": B,
+            "decisions": T, "shards": [1, SHARDS],
+            "sharded_1_equals_fused": True,
+            f"sharded_{SHARDS}_equals_per_shard_fused": True,
+            "launches": {k: v for k, v in counts.items() if v},
+            "ms_per_decision": times,
+            "median_ms_per_decision": {k: float(np.median(v))
+                                       for k, v in times.items()},
+            "metrics": {k: float(v.float().mean()) for k, v in m.items()}}))
+    return launches
+
+
+def phase_build_case(dev, card, B=4, S=2048):
+    """23b: `launch.steps.build_case` for tinyllama-1.1b at full width on a
+    1-device mesh, the reference's defaults (bf16 compute, remat, fp32
+    params, Adam in place): a train step at B x S with microbatches 1 and
+    2 from the same params and batch (loss within 2e-3 relative, every
+    param within 5e-3: the reference test's bounds), each counted (22 + 22
+    forward launches with remat, 22 backward, per microbatch); ms a step
+    (median of the two steps after the first), peak memory and one
+    profiled step's idle share;
+    then prefill at 1 x S into a cache with room for more, and one decode
+    step from it (finite logits, 22 flash launches a prefill). Returns
+    launches."""
+    from repro_torch.common.config import get_config
+    from repro_torch.common.pytree import tree_leaves, tree_map
+    from repro_torch.launch import mesh as MX
+    from repro_torch.launch import shapes as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.zoo import build_model
+    from repro_torch.training.optimizer import adam_init
+    cfg = get_config(TRAIN_ARCH)
+    n_attn, _ = _mixers(cfg)
+    mesh = MX.make_debug_mesh(1, 1, device=dev)
+    model = build_model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params0 = model.init(torch.Generator(device=dev).manual_seed(23),
+                         device=dev)
+    batch = _lm_batch(cfg, B, S, dev, seed=23)
+    shape = SH.ShapeSpec("train_2k", "train", S, B)
+    launches, out, row = {}, {}, {"card": card, "arch": cfg.name,
+                                  "params": cfg.param_count(), "batch": B,
+                                  "seq": S, "compute_dtype": "bfloat16",
+                                  "remat": True}
+    for mb in (1, 2):
+        case = ST.build_case(cfg, shape, mesh, microbatches=mb)
+        structs = tree_leaves(case.arg_structs[0])
+        assert [tuple(x.shape) for x in structs] == \
+            [tuple(x.shape) for x in tree_leaves(params0)]
+        params = tree_map(torch.clone, params0)
+        opt = adam_init(params)
+        torch.cuda.reset_peak_memory_stats(dev)
+        (_, opt, loss, _), counts, secs = _run_counted(
+            dev, lambda: case.fn(params, opt, batch))
+        assert counts["flash_attention"] == 2 * n_attn * mb, counts
+        assert counts["flash_attention_bwd"] == n_attn * mb, counts
+        add_counts(launches, counts)
+        assert np.isfinite(loss.item()), loss
+        row[f"mb{mb}"] = {"loss": loss.item(), "first_step_s": secs,
+                          "peak_device_gib":
+                              torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                          "launches": {k: v for k, v in counts.items() if v}}
+        out[mb] = (loss.item(), tree_map(torch.clone, params)
+                   if mb == 1 else params)
+        if mb == 1:                  # time and profile on from that step
+            step_ms = []
+            for _ in range(2):
+                sync(dev)
+                t0 = time.perf_counter()
+                case.fn(params, opt, batch)
+                sync(dev)
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+            row["ms_per_step"] = float(np.median(step_ms))
+            row["step_ms"] = step_ms
+            with uncounted():
+                row["profile"] = profile_device(
+                    dev, lambda: case.fn(params, opt, batch), 1, "step")
+        del opt, params
+    (l1, p1), (l2, p2) = out[1], out[2]
+    assert abs(l1 - l2) <= 2e-3 * abs(l1), (l1, l2)
+    worst = max(float((a - b_).abs().max())
+                for a, b_ in zip(tree_leaves(p1), tree_leaves(p2)))
+    assert worst < 5e-3, worst
+    row["mb2_vs_mb1"] = {"loss_rel": abs(l1 - l2) / abs(l1),
+                         "worst_param_abs": worst}
+    del out, p1, p2
+    gc.collect()
+    torch.cuda.empty_cache()
+    pre = ST.build_case(cfg, SH.ShapeSpec("prefill_2k", "prefill", S, 1),
+                        mesh)
+    dec = ST.build_case(cfg, SH.ShapeSpec("decode_2k", "decode", S, 1), mesh)
+    cache = model.make_cache(1, S + 64, torch.bfloat16, device=dev)
+    (logits, cache), counts, pre_s = _run_counted(
+        dev, lambda: pre.fn(params0, {"tokens": batch["tokens"][:1]}, cache))
+    assert counts["flash_attention"] == n_attn, counts
+    add_counts(launches, counts)
+    nxt = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+    sync(dev)
+    t0 = time.perf_counter()
+    logits2, cache = dec.fn(params0, cache, nxt)
+    sync(dev)
+    dec_s = time.perf_counter() - t0
+    for lg in (logits, logits2):
+        assert lg.shape == (1, 1, cfg.padded_vocab), lg.shape
+        assert bool(torch.isfinite(lg[..., :cfg.vocab_size]).all())
+    assert cache["pos"] == S + 1, cache["pos"]
+    row.update(prefill_ms=1e3 * pre_s, decode_ms=1e3 * dec_s,
+               launches_total={k: v for k, v in launches.items() if v})
+    log("phase 23b build_case " + json.dumps(row))
+    del params0, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_cli(dev, card, servers=4, tasks=12, archs=SERVE_CLI_ARCHS,
+                    reduced=False):
+    """23c: `launch.serve.run` (the serving CLI's loop) at full width on
+    `servers` servers, `tasks` tasks over `archs`, fifo and eat, each
+    counted: every task completes, one flash_attention launch per
+    attention layer of every served prefill. Then the fifo run again with
+    every generate on the plain attention (`impl="ref"`, phase 21's
+    patch of `ModelExecutor.generate`, uncounted): the same done records
+    and tokens. The eat decision is `sac.policy_act`, the reference's:
+    the plain reverse chain, no chain kernel. Returns launches."""
+    from repro_torch.common.config import get_config
+    from repro_torch.launch import serve as SV
+    from repro_torch.serving.executor import ModelExecutor
+    launches, done = {}, {}
+
+    def served(policy):
+        eng = SV.run(policy, servers=servers, tasks=tasks, archs=archs,
+                     reduced=reduced, device=dev, verbose=False)
+        return eng.done, eng.qos_summary()
+    for policy in ("fifo", "eat"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        (recs, qos), counts, secs = _run_counted(dev, lambda: served(policy))
+        assert len(recs) == tasks, (policy, len(recs))
+        for r in recs:
+            assert r.tokens is not None and len(r.tokens) == r.steps
+        cfgs = {a: get_config(a) for a in archs}
+        if reduced:
+            cfgs = {a: c.reduced() for a, c in cfgs.items()}
+        want = sum(prefill_launches(cfgs[r.arch])["flash_attention"]
+                   for r in recs)
+        assert counts["flash_attention"] == want, (counts, want)
+        add_counts(launches, counts)
+        done[policy] = recs
+        log("phase 23c serve CLI " + json.dumps({
+            "card": card, "policy": policy, "archs": list(archs),
+            "reduced": reduced, "servers": servers, "tasks": tasks,
+            "wall_s": secs, "launches": {k: v for k, v in counts.items()
+                                         if v},
+            "peak_device_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            if dev.type == "cuda" else None,
+            "qos_summary": qos}))
+    plain = ModelExecutor.generate
+
+    def plain_generate(ex, *args, **kw):
+        kw["impl"] = "ref"
+        return plain(ex, *args, **kw)
+    ModelExecutor.generate = plain_generate
+    try:
+        with uncounted():
+            ref, _ = served("fifo")
+    finally:
+        ModelExecutor.generate = plain
+    fields = ("rid", "arch", "patches", "steps", "reused", "start_t",
+              "finish_t", "quality", "arrive_t")
+    for a, b in zip(done["fifo"], ref):
+        assert all(getattr(a, f) == getattr(b, f) for f in fields), (a, b)
+        assert np.array_equal(a.tokens, b.tokens), (a.rid, a.tokens, b.tokens)
+    assert len(ref) == len(done["fifo"])
+    log(f"phase 23c fifo on the kernels equals the plain attention: {tasks} "
+        "done records and their tokens")
+    return launches
+
+
+def phase_launch(dev, card, actor):
+    """Phase 23, the multi-device and launch layer (ROADMAP item 15):
+    23a-23c. Returns the launches of their main paths."""
+    t0 = time.perf_counter()
+    launches = {}
+    add_counts(launches, phase_sharded(dev, card, actor))
+    add_counts(launches, phase_build_case(dev, card))
+    add_counts(launches, phase_serve_cli(dev, card))
+    log(f"phase 23 took {time.perf_counter() - t0:.3f} s")
+    return launches
+
+
 def _sdpa_call(q, k, v):
     """One PyTorch call computing flash_attention's function on the same
     (B, S, H, hd) tensors: `scaled_dot_product_attention` on head-major
@@ -3652,8 +3957,8 @@ def measure(env_timing, chain_timing, step_timing, flash_timing, ssm_timing,
     operations are its S·I·N exponentials at the SFU rate and its 6 fp32
     operations per state and step (`bound_terms_ms` gives each term); no
     single PyTorch call computes it. `launches` is each kernel's count
-    summed over the main-path runs (phases 4, 8, 9, 10, 12, 14 and
-    15-18, graph replays included),
+    summed over the main-path runs (phases 4, 8, 9, 10, 12, 14, 15-21
+    and 23, graph replays included),
     `launches_per_request` a serving kernel's per served request in phases
     12 and 14. The redesigned kernels (all seven) also carry
     `event_device_ms` (CUDA events with the host ahead of the card,
@@ -4089,6 +4394,9 @@ def main():
     torch.cuda.empty_cache()
     add_counts(launches, phase_zoo(dev, card))
     log(f"phase 21 took {time.perf_counter() - t0:.3f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    add_counts(launches, phase_launch(dev, card, ts.actor))
     for name in KERNELS:
         assert launches.get(name, 0) > 0, (name, launches)
     rows = measure(env_timing, chain_timing, step_timing, flash_timing,

@@ -13,8 +13,8 @@ One door to everything the repo simulates:
   built on `core.scenarios` + `traffic.arrivals`.
 * `ExecSpec`: pluggable execution backends — "reference" (the unfused
   engine), "fused" (the env_step kernel in the decision's CUDA graphs,
-  default), "serving" (one physical serving cluster); "sharded" waits for
-  ROADMAP Queue 1 item 15.
+  default), "sharded" (the fused engine over a device mesh, one shard of
+  the batch a device), "serving" (one physical serving cluster).
 
 Consumers: SAC/PPO training collection, `traffic.sweep` and
 `training.stream_train`. The pre-facade doors

@@ -133,9 +133,15 @@ class ExecSpec:
     * ``backend="reference"``: the unfused engine on the compositional
       `env.step_with_queue` (`batch_rollout(fused=False)`; equal results,
       slower; the oracle).
-    * ``backend="sharded"``: the batch/stream axis split over several
-      devices. Not ported (ROADMAP Queue 1 item 15): resolving it raises;
-      `mesh_devices` / `mesh_axis` are kept for that item.
+    * ``backend="sharded"``: the fused engine over a 1-D device mesh
+      (`launch.mesh.make_data_mesh`, driven from one process) — the
+      batch/stream axis splits over `mesh_devices` devices (0 = all CUDA
+      devices, or one on the host, where any count may be asked for;
+      degraded to gcd(batch, devices) when the batch does not divide).
+      One shard equals "fused" in every tensor; with n shards, shard s
+      draws from child s of `api.simulator.split_generator(generator, n)`
+      (`api.backends.rollout_fn_for`), and policies that draw nothing
+      equal "fused" for any n.
     * ``backend="serving"``: the real serving cluster
       (`repro_torch.serving.backend.ServingRollout`) — ONE physical pool
       (batch/streams must be 1) running actual weight loads and

@@ -69,6 +69,22 @@ def tree_paths(tree: Any) -> Dict[str, Any]:
     return out
 
 
+def map_with_paths(fn: Callable[[str, Any], Any], tree: Any) -> Any:
+    """`tree_map` with each leaf's 'a/b/c' path (`tree_paths`' keys; a
+    NamedTuple's slots by field name) passed to `fn(path, leaf)`."""
+    def walk(node, prefix):
+        kids = _children(node)
+        if kids is None:
+            return fn("/".join(prefix), node)
+        if isinstance(node, dict):
+            names = sorted(node)
+        else:
+            names = getattr(node, "_fields", range(len(kids)))
+        return _rebuild(node, [walk(k, prefix + [str(n)])
+                               for n, k in zip(names, kids)])
+    return walk(tree, [])
+
+
 def normal_init(generator: torch.Generator, shape, *, stddev: float = 0.02,
                 device=None, dtype=torch.float32) -> torch.Tensor:
     """N(0, stddev^2) of `shape`, drawn in place from `generator` on

@@ -115,7 +115,11 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
     b, _, h, hd = q.shape
     t, kv = k_cache.shape[1], k_cache.shape[2]
     qg = _gqa_split(q, kv)[:, 0]                              # (B, KV, G, hd)
-    sc = torch.einsum("bkgh,btkh->bkgt", qg, k_cache).to(torch.float32)
+    # a cache in another dtype than q: the scores in the promoted dtype, as
+    # jnp.einsum computes them
+    dt = torch.promote_types(q.dtype, k_cache.dtype)
+    sc = torch.einsum("bkgh,btkh->bkgt", qg.to(dt),
+                      k_cache.to(dt)).to(torch.float32)
     sc = sc / math.sqrt(hd)
     pos = torch.arange(t, device=q.device)
     if isinstance(cache_len, torch.Tensor):

@@ -28,6 +28,7 @@ from repro_torch.models import blocks as B
 from repro_torch.models.layers import (embed, ffn, init_embedding, init_ffn,
                                        init_layernorm, layernorm, linear,
                                        next_token_nll)
+from repro_torch.sharding.context import constrain
 
 
 def sinusoid_pos(positions, d: int, dtype=torch.float32):
@@ -96,7 +97,7 @@ def encode(params, cfg: ArchConfig, frames, compute_dtype=torch.float32, *,
         h = layernorm(lp["ln1"], x, cfg.norm_eps)
         x = x + B.attn_train(lp["attn"], cfg, h, causal=False, impl=impl)
         h = layernorm(lp["ln2"], x, cfg.norm_eps)
-        x = x + ffn(lp["ffn"], h, "gelu")
+        x = constrain(x + ffn(lp["ffn"], h, "gelu"))
     return layernorm(params["enc_ln"], x, cfg.norm_eps)
 
 
@@ -129,7 +130,7 @@ def encdec_logits(params, cfg: ArchConfig, frames, tokens,
         kv = B.cross_attn_kv(lp["cross_attn"], cfg, enc)
         x = x + B.cross_attn_apply(lp["cross_attn"], cfg, h, kv, impl=impl)
         h = layernorm(lp["ln3"], x, cfg.norm_eps)
-        x = x + ffn(lp["ffn"], h, "gelu")
+        x = constrain(x + ffn(lp["ffn"], h, "gelu"))
     return _head(params, cfg, x)
 
 
@@ -179,7 +180,7 @@ def encdec_prefill(params, cfg: ArchConfig, frames, tokens, cache,
             cache["cross"][key][i].copy_(kv[key])
         x = x + B.cross_attn_apply(lp["cross_attn"], cfg, h, kv, impl=impl)
         h = layernorm(lp["ln3"], x, cfg.norm_eps)
-        x = x + ffn(lp["ffn"], h, "gelu")
+        x = constrain(x + ffn(lp["ffn"], h, "gelu"))
     logits = _head(params, cfg, x[:, -1:])
     return logits, {"self": cache["self"], "cross": cache["cross"],
                     "pos": int(tokens.shape[1])}
@@ -205,6 +206,6 @@ def encdec_decode(params, cfg: ArchConfig, cache, token,
                                       cc["v"].to(h.dtype), cc["k"].shape[1])
         x = x + linear(lp["cross_attn"]["wo"], o.reshape(b, 1, -1))
         h = layernorm(lp["ln3"], x, cfg.norm_eps)
-        x = x + ffn(lp["ffn"], h, "gelu")
+        x = constrain(x + ffn(lp["ffn"], h, "gelu"))
     return _head(params, cfg, x), {"self": cache["self"],
                                    "cross": cache["cross"], "pos": pos + 1}

@@ -44,6 +44,7 @@ from repro_torch.models import blocks as B
 from repro_torch.models.layers import (embed, ffn, init_embedding, init_ffn,
                                        init_rmsnorm, linear, next_token_nll,
                                        rmsnorm)
+from repro_torch.sharding.context import constrain
 
 
 # ----------------------------------------------------------------------
@@ -155,7 +156,7 @@ def _embed_tokens(params, cfg: ArchConfig, tokens, frontend, dtype):
     if frontend is not None:
         fe = frontend.to(dtype) @ params["frontend_proj"]["w"].to(dtype)
         x = torch.cat([fe, x], dim=1)
-    return x
+    return constrain(x)
 
 
 def _head(params, cfg: ArchConfig, x):
@@ -190,7 +191,7 @@ def lm_logits(params, cfg: ArchConfig, tokens, compute_dtype=torch.float32,
             h = rmsnorm(pp[f"norm{i}_mix"], x, cfg.norm_eps)
             x = x + _mixer_train(pp, cfg, i, mixer, h, impl)
             x, aux = _ffn_apply(pp, cfg, i, f, x, aux, moe_dropless)
-        return x, aux
+        return constrain(x), aux
 
     aux = torch.zeros((), device=x.device)
     for p in range(n_periods(cfg)):
@@ -271,6 +272,7 @@ def _run_cached(params, cfg: ArchConfig, x, cache, pos: int, *, decode: bool,
             else:
                 y, _ = B.slstm_prefill(pp[key], cfg, cfg.ssm, h, pc[key])
             x, aux = _ffn_apply(pp, cfg, i, f, x + y, aux, moe_dropless)
+        x = constrain(x)
     return x, cache["periods"]
 
 

@@ -61,12 +61,15 @@ def build_model(cfg: ArchConfig) -> Model:
                                         dtype, device=device)
 
         def prefill(params, batch: Dict, cache, compute_dtype=torch.bfloat16,
-                    *, impl: str = "auto"):
+                    *, impl: str = "auto", moe_dropless: bool = True):
+            del moe_dropless  # no MoE in the enc-dec family
             return ED.encdec_prefill(params, cfg, batch["frames"],
                                      batch["tokens"], cache, compute_dtype,
                                      impl=impl)
 
-        def decode(params, cache, token, compute_dtype=torch.bfloat16):
+        def decode(params, cache, token, compute_dtype=torch.bfloat16, *,
+                   moe_dropless: bool = True):
+            del moe_dropless
             return ED.encdec_decode(params, cfg, cache, token, compute_dtype)
 
         return Model(cfg, init, loss, prefill, decode, make_cache)
@@ -92,12 +95,14 @@ def build_model(cfg: ArchConfig) -> Model:
         return LM.init_cache(cfg, batch_size, cache_len, dtype, device=device)
 
     def prefill(params, batch: Dict, cache, compute_dtype=torch.bfloat16, *,
-                impl: str = "auto"):
+                impl: str = "auto", moe_dropless: bool = True):
         return LM.lm_prefill(params, cfg, batch["tokens"], cache,
                              compute_dtype, frontend=_frontend_of(cfg, batch),
-                             impl=impl)
+                             impl=impl, moe_dropless=moe_dropless)
 
-    def decode(params, cache, token, compute_dtype=torch.bfloat16):
-        return LM.lm_decode(params, cfg, cache, token, compute_dtype)
+    def decode(params, cache, token, compute_dtype=torch.bfloat16, *,
+               moe_dropless: bool = True):
+        return LM.lm_decode(params, cfg, cache, token, compute_dtype,
+                            moe_dropless=moe_dropless)
 
     return Model(cfg, init, loss, prefill, decode, make_cache)

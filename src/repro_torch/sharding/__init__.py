@@ -1,0 +1,1 @@
+"""Partition rules and the activation-sharding context of the port."""

@@ -185,11 +185,14 @@ def test_resolve_provenance():
     "sharded", "fused_impl", "backend", "serving_batch", "placement_episodic",
     "arch_not_ported", "missing_checkpoint", "distilled_without_student",
     "offline_without_trace", "stream_train_distilled"])
-def test_refusals(case, tmp_path):
+def test_refusals(case, tmp_path, monkeypatch):
     sc = _scenario()
     if case == "sharded":
-        with pytest.raises(NotImplementedError, match="item 15"):
-            api.rollout_fn_for(api.ExecSpec(backend="sharded"))
+        # more mesh devices than CUDA devices: the reference's error
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+        spec = api.ExecSpec(backend="sharded", mesh_devices=3)
+        with pytest.raises(ValueError, match="only 2 local devices"):
+            api.resolve_shards(6, spec, device="cuda")
     elif case == "fused_impl":
         with pytest.raises(ValueError, match="fused_impl"):
             api.ExecSpec(fused_impl="pallas")

@@ -203,7 +203,7 @@ runs, one line per result:
    two train steps each, kernels against the plain versions on the
    loss and grad norm; (g) env_step, denoiser_chain and denoiser_step
    raise on CUDA inputs that require grad (they have no backward);
-23. the multi-device and launch layer (ROADMAP item 15), last: (a) the
+23. the multi-device and launch layer (ROADMAP item 15): (a) the
    sharded backend (`ExecSpec(backend="sharded")`) on paper-8srv at
    B = 256, fifo and ddpm, a whole episode collected: one shard equal to
    fused in every tensor, a mesh of 4 shards on the one card equal to the
@@ -220,6 +220,14 @@ runs, one line per result:
    12 tasks, fifo and eat: every task completes, one flash launch per
    attention layer of every prefill, and the fifo run's records and tokens
    equal to the same run on the plain attention;
+24. the dry-run and the roofline (ROADMAP item 15's analysis), last: (a)
+   `python -m repro_torch.launch.dryrun` for xlstm-125m at decode_32k on
+   the 512-rank mesh and tinyllama-1.1b at train_4k on the 256-rank mesh,
+   side by side in subprocesses on the host (meta tensors over a fake
+   process group: no kernel, no device memory), each an ok record;
+   (b) `launch.roofline.analytic_terms` at one device for 23b's train
+   step, prefill and decode step, each bound beside 23b's measured ms
+   (a measured time below its bound fails);
 then the phase 6 rows (the two backward kernels among them), a `kernels`
 JSON line after the card's `nvidia-smi` line, and
 `{"ok": true, "device": {...}}` as the last line.
@@ -3783,7 +3791,7 @@ def phase_build_case(dev, card, B=4, S=2048):
     del params0, cache
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, row
 
 
 def phase_serve_cli(dev, card, servers=4, tasks=12, archs=SERVE_CLI_ARCHS,
@@ -3853,14 +3861,88 @@ def phase_serve_cli(dev, card, servers=4, tasks=12, archs=SERVE_CLI_ARCHS,
 
 def phase_launch(dev, card, actor):
     """Phase 23, the multi-device and launch layer (ROADMAP item 15):
-    23a-23c. Returns the launches of their main paths."""
+    23a-23c. Returns the launches of their main paths and 23b's row."""
     t0 = time.perf_counter()
     launches = {}
     add_counts(launches, phase_sharded(dev, card, actor))
-    add_counts(launches, phase_build_case(dev, card))
+    counts, row = phase_build_case(dev, card)
+    add_counts(launches, counts)
     add_counts(launches, phase_serve_cli(dev, card))
     log(f"phase 23 took {time.perf_counter() - t0:.3f} s")
-    return launches
+    return launches, row
+
+
+DRYRUN_CASES = (("xlstm-125m", "decode_32k", "multi", 512),
+                ("tinyllama-1.1b", "train_4k", "single", 256))
+
+
+def phase_dryrun(dev, card, row23b, cases=DRYRUN_CASES, timeout=600):
+    """Phase 24, the dry-run and the roofline on the card's host.
+    (a) `python -m repro_torch.launch.dryrun` in a subprocess per case
+    (run side by side, on the host: meta tensors over a fake process group
+    of 256 or 512 ranks, no kernel, no device memory): each must print
+    "1 ok, 0 skipped, 0 errors / 1 cases" and write an ok record with the
+    mesh's devices, per-device FLOPs and the analytic terms. That proves
+    this torch has the fake group and the counting modes. (b) The analytic
+    roofline (`launch.roofline.analytic_terms` at n_dev = 1, dp = 1, the
+    H100 constants) of phase 23b's three tinyllama-1.1b shapes beside the
+    times 23b measured: a train step at 4 x 2048, a prefill at 1 x 2048,
+    one decode step at 2048. The bound is the larger of the compute and
+    memory terms (one device moves no collective); a measured time below
+    its bound fails the phase: the constants or the count would be
+    wrong."""
+    import os
+    from repro_torch.common.config import get_config
+    from repro_torch.launch import shapes as SH
+    from repro_torch.launch.roofline import analytic_terms
+    t0 = time.perf_counter()
+    out = ROOT / "build" / "dryrun_torch"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = [(case, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         case[0], "--shape", case[1], "--mesh", case[2], "--out", str(out)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)) for case in cases]
+    rows = []
+    for (arch, shape, mesh, n_dev), proc in procs:
+        try:
+            stdout, stderr = proc.communicate(timeout=timeout)
+        finally:
+            proc.kill()
+        path = out / f"{arch}__{shape}__{mesh}.json"
+        rec = json.loads(path.read_text()) if path.exists() else {}
+        assert proc.returncode == 0 and \
+            "1 ok, 0 skipped, 0 errors / 1 cases" in stdout, \
+            (arch, shape, stdout[-2000:], stderr[-2000:],
+             rec.get("traceback"))
+        assert rec["status"] == "ok" and rec["devices"] == n_dev, rec
+        assert rec["hlo_flops"] > 0 and "a_compute_s" in rec, rec
+        rows.append({k: rec[k] for k in (
+            "arch", "shape", "mesh", "devices", "trace_s", "hlo_flops",
+            "hlo_bytes", "collective_bytes", "bottleneck",
+            "useful_flop_ratio", "a_bottleneck", "reshards")})
+    log("phase 24a dryrun " + json.dumps(rows))
+    cfg = get_config(TRAIN_ARCH)
+    S, B = row23b["seq"], row23b["batch"]
+    bounds = []
+    for name, shape, key in (
+            ("train", SH.ShapeSpec("train_2k", "train", S, B), "ms_per_step"),
+            ("prefill", SH.ShapeSpec("prefill_2k", "prefill", S, 1),
+             "prefill_ms"),
+            ("decode", SH.ShapeSpec("decode_2k", "decode", S, 1),
+             "decode_ms")):
+        terms = analytic_terms(cfg, shape, 1, 1)
+        bound_ms = 1e3 * max(terms["a_compute_s"], terms["a_memory_s"])
+        measured = row23b[key]
+        bounds.append({"card": card, "step": name, "batch": shape.global_batch,
+                       "seq": S, "measured_ms": measured,
+                       "bound_ms": bound_ms,
+                       "compute_ms": 1e3 * terms["a_compute_s"],
+                       "memory_ms": 1e3 * terms["a_memory_s"],
+                       "measured_over_bound": measured / bound_ms})
+        assert measured >= bound_ms, (name, measured, bound_ms)
+    log("phase 24b roofline " + json.dumps(bounds))
+    log(f"phase 24 took {time.perf_counter() - t0:.3f} s")
 
 
 def _sdpa_call(q, k, v):
@@ -4396,7 +4478,9 @@ def main():
     log(f"phase 21 took {time.perf_counter() - t0:.3f} s")
     gc.collect()
     torch.cuda.empty_cache()
-    add_counts(launches, phase_launch(dev, card, ts.actor))
+    counts, row23b = phase_launch(dev, card, ts.actor)
+    add_counts(launches, counts)
+    phase_dryrun(dev, card, row23b)
     for name in KERNELS:
         assert launches.get(name, 0) > 0, (name, launches)
     rows = measure(env_timing, chain_timing, step_timing, flash_timing,

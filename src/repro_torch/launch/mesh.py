@@ -1,6 +1,20 @@
-"""Device meshes (port of `repro/launch/mesh.py`; the TPU v5e constants and
-`make_production_mesh` come with the dry-run analysis, ROADMAP item 15's
-second part).
+"""Device meshes and the roofline's hardware constants (port of
+`repro/launch/mesh.py`).
+
+TARGET: NVIDIA H100 SXM (HGX) in place of the reference's TPU v5e pods:
+the production meshes keep the reference's shapes, 16 x 16 = 256 devices
+("data", "model") and 2 x 16 x 16 = 512 ("pod", "data", "model"). A
+256-device mesh spans 32 HGX nodes of 8 GPUs: only 8 devices share
+NVLink, so the outer axis and most of `model`'s 16 cross InfiniBand at
+about 50 GB/s a GPU (one 400 Gb/s NIC each). The collective term, taken at
+NVLink's rate, is therefore a lower bound.
+
+`make_production_mesh` is a FUNCTION (not a module constant) so importing
+this module never touches process-group state. It returns a
+`torch.distributed` `DeviceMesh` on "cpu" over a fake process group of
+256 or 512 ranks (`torch.testing._internal.distributed.fake_pg`: every
+collective returns at once, no data moves): the dry-run's world
+(`launch.dryrun`), a host analysis, not a fallback from the card.
 
 The reference's `make_data_mesh` is a one-axis jax mesh that `shard_map`
 drives from one process. The port's counterpart is single-controller too:
@@ -23,6 +37,13 @@ from typing import Dict, Sequence, Tuple, Union
 import torch
 
 from repro_torch.common.device import resolve_device
+
+# NVIDIA H100 SXM constants (per device) for the roofline model
+PEAK_FLOPS_BF16 = 989e12        # FLOP/s, dense
+HBM_BW = 3.35e12                # bytes/s
+HBM_PER_DEVICE = 80e9           # bytes
+LINK_BW = 25e9                  # bytes/s per NVLink 4 link, each way
+NUM_LINKS = 18                  # 18 links: 450 GB/s each way in aggregate
 
 
 @dataclass(frozen=True)
@@ -101,3 +122,25 @@ def make_data_mesh(devices: Union[int, Sequence] = 0, axis: str = "data", *,
     n = int(devices) or (torch.cuda.device_count() if dev.type == "cuda"
                          else 1)
     return make_mesh((n,), (axis,), device=dev)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The (16, 16) ("data", "model") mesh, or (2, 16, 16) ("pod",
+    "data", "model") with `multi_pod`, as a `DeviceMesh` on "cpu" over a
+    fake process group of 256 or 512 ranks. The group is initialised here
+    (rank 0) when none exists; a group of another size raises."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = math.prod(shape)
+    if not dist.is_initialized():
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        dist.init_process_group("fake", world_size=n, rank=0,
+                                store=FakeStore())
+    elif dist.get_world_size() != n:
+        raise ValueError(
+            f"a process group of {dist.get_world_size()} ranks exists; the "
+            f"{'multi' if multi_pod else 'single'}-pod mesh needs {n} "
+            "(destroy it first)")
+    return init_device_mesh("cpu", shape, mesh_dim_names=axes)

@@ -19,11 +19,20 @@ mesh: tensors on that device), with the activation-sharding context armed
 (`sharding.context`). Where the reference jits with `donate_argnums`, the
 port updates the donated arguments in place: the train step's params and
 Adam moments (`training.optimizer.adam_apply_`), the prefill's and the
-decode's cache (the models write it). The reference's `lower_case` has no
-counterpart here; it waits for the dry-run analysis (ROADMAP item 15).
+decode's cache (the models write it).
+
+`lower_case` is the counterpart of the reference's `jax.jit(...).lower`:
+it places a case's meta structs as DTensors on a `DeviceMesh` (the
+dry-run's fake world, `launch.mesh.make_production_mesh`) by the case's
+in-shardings, and its `analyze()` runs the step once under the dry-run's
+counting modes (`launch.hlo_analysis`) and reshard policy
+(`launch.reshard`). Build such a case with `impl="ref"`: the kernels take
+no meta tensors, and the reference's dry-run traces its jnp paths too.
+A decode step runs no kernel, so `impl` reaches the loss and the prefill.
 """
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -99,11 +108,12 @@ def build_case(arch_cfg: ArchConfig, shape: ShapeSpec, mesh, *,
                lr: float = 1e-4, compute_dtype=torch.bfloat16,
                remat: bool = True, seq_shard_activations: bool = False,
                microbatches: int = 1, tp_inference: bool = False,
-               param_dtype=torch.float32) -> Optional[Case]:
+               param_dtype=torch.float32, impl: str = "auto") -> Optional[Case]:
     """The step of `shape.kind` for `arch_cfg` adapted to `shape` (None
     when the pair is skipped) on `mesh` (a `launch.mesh.Mesh`, a
     `DeviceMesh` or a mapping from axis name to size). On the card the
-    steps' attention and scans run the kernels."""
+    steps' attention and scans run the kernels (`impl="auto"`); "ref"
+    takes their plain versions anywhere."""
     cfg = adapt_config(arch_cfg, shape)
     if cfg is None:
         return None
@@ -146,7 +156,7 @@ def build_case(arch_cfg: ArchConfig, shape: ShapeSpec, mesh, *,
         def grad_of(params, mb):
             return value_and_grad(
                 lambda p: model.loss(p, mb, compute_dtype=compute_dtype,
-                                     remat=remat), params)
+                                     remat=remat, impl=impl), params)
 
         def train_step(params, opt_state, batch):
             if microbatches <= 1:
@@ -200,7 +210,7 @@ def build_case(arch_cfg: ArchConfig, shape: ShapeSpec, mesh, *,
             # capacity-bounded MoE dispatch at scale (dropless would cost
             # e/k-times the expert FLOPs on a 32k prompt)
             return model.prefill(params, batch, cache,
-                                 compute_dtype=compute_dtype,
+                                 compute_dtype=compute_dtype, impl=impl,
                                  moe_dropless=False)
 
         return Case(
@@ -229,3 +239,72 @@ def build_case(arch_cfg: ArchConfig, shape: ShapeSpec, mesh, *,
         donate_argnums=(1,),
         cfg=cfg,
     )
+
+
+def _local_bytes(tree) -> int:
+    from torch.distributed.tensor import DTensor
+    return sum(x.to_local().numel() * x.element_size()
+               if isinstance(x, DTensor) else x.numel() * x.element_size()
+               for x in tree_leaves(tree) if isinstance(x, torch.Tensor))
+
+
+class Lowered:
+    """A case's step with its arguments placed as DTensors on `mesh`.
+    `analyze()` traces it once (the first call) and returns what the
+    counters saw: per-device FLOPs by op and eager bytes, collectives'
+    output bytes and counts by kind, the reshard policy's record, the
+    arguments' and the fresh outputs' local bytes, the peak of what the
+    step allocates (`MemTracker`, local shards), the trace's seconds."""
+
+    def __init__(self, case: Case, mesh, budget_s: float = float("inf")):
+        from torch.distributed.tensor import distribute_tensor
+        from repro_torch.sharding.specs import to_placements
+        self.case, self.mesh = case, mesh
+        names = mesh.mesh_dim_names
+
+        def place(x, sh):
+            if not isinstance(x, torch.Tensor):
+                return x                         # a cache's int `pos`
+            return distribute_tensor(x, mesh, to_placements(sh.spec, names))
+        self.args = tree_map(place, tuple(case.arg_structs),
+                             tuple(case.in_shardings))
+        self.dp_dims = tuple(i for i, n in enumerate(names)
+                             if n in ("pod", "data"))
+        self.budget_s = budget_s
+        self._record = None
+
+    def analyze(self) -> Dict:
+        if self._record is not None:
+            return self._record
+        from torch.distributed._tools.mem_tracker import MemTracker
+        from repro_torch.launch.hlo_analysis import (CollectiveCounter,
+                                                     LocalCounter)
+        from repro_torch.launch.reshard import (ReshardPolicy,
+                                                greedy_redistribute_plans)
+        mem, local, comm = MemTracker(), LocalCounter(), CollectiveCounter()
+        policy = ReshardPolicy(self.dp_dims, counters=(local, comm),
+                               budget_s=self.budget_s)
+        t0 = time.time()
+        with greedy_redistribute_plans(), mem, local, comm, policy:
+            out = self.case.fn(*self.args)
+        ids = {id(x) for x in tree_leaves(self.args)}
+        fresh = [x for x in tree_leaves(out)
+                 if isinstance(x, torch.Tensor) and id(x) not in ids]
+        self._record = {
+            "flops": dict(local.flops), "bytes": local.bytes,
+            "coll_bytes": dict(comm.coll_bytes),
+            "coll_ops": dict(comm.coll_ops),
+            "argument_bytes": _local_bytes(self.args),
+            "output_bytes": _local_bytes(fresh),
+            "temp_peak_bytes": sum(
+                d["Total"] for d in mem.get_tracker_snapshot("peak").values()),
+            "trace_s": round(time.time() - t0, 2), **policy.record()}
+        return self._record
+
+
+def lower_case(case: Case, mesh, *, budget_s: float = float("inf")
+               ) -> Lowered:
+    """The counterpart of `jax.jit(case.fn, ...).lower(*arg_structs)`:
+    `case`'s arguments distributed as DTensors on `mesh` (a `DeviceMesh`)
+    by `case.in_shardings`; its trace stops past `budget_s` seconds."""
+    return Lowered(case, mesh, budget_s)

@@ -31,6 +31,7 @@ from repro_torch.kernels.ssm_scan import ops as SS
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import (apply_rope, init_linear, linear,
                                        log_sigmoid, softplus)
+from repro_torch.sharding.context import constrain_moe
 
 
 def init_attn(generator, cfg: ArchConfig, *, lead=(), device=None):
@@ -104,12 +105,23 @@ def attn_prefill(p, cfg: ArchConfig, x, cache: Dict, *, window: int = 0,
 
 def attn_decode(p, cfg: ArchConfig, x, cache: Dict, pos: int, *,
                 window: int = 0):
-    """x: (B, 1, d); pos: the absolute position of this token (an int)."""
+    """x: (B, 1, d); pos: the absolute position of this token (an int).
+
+    A write at or past the end of a cache that is not a ring raises a
+    ValueError. The reference does not: `dynamic_update_slice_in_dim`
+    clamps the start, so it overwrites the last slot and then attends with
+    length pos + 1. That is a documented difference (ROADMAP Queue 3); the
+    serving executor and `launch.steps` size every cache so that no served
+    or launched decode reaches it."""
     b = x.shape[0]
     t = cache["k"].shape[1]
+    ring = bool(window) and t == window
+    if not ring and pos >= t:
+        raise ValueError(
+            f"attn_decode: a KV write at position {pos} into a cache of "
+            f"{t} slots (the reference clamps it into slot {t - 1})")
     positions = torch.full((b, 1), pos, device=x.device)
     q, k, v = _qkv(p, cfg, x, positions)
-    ring = bool(window) and t == window
     widx = pos % t if ring else pos
     cache["k"][:, widx] = k[:, 0].to(cache["k"].dtype)
     cache["v"][:, widx] = v[:, 0].to(cache["v"].dtype)
@@ -177,7 +189,11 @@ def moe_apply(p, cfg: ArchConfig, mcfg: MoEConfig, x,
     empty slots add nothing to the reference's combine), so an expert no
     token chose is never read. The k-combine is the reference's: (S, k, d)
     times the kept weights, summed over k. One device-to-host copy per
-    call (the experts' row counts)."""
+    call (the experts' row counts).
+
+    A tensor whose values cannot be read (a meta tensor: the dry-run's
+    trace, `launch.steps.lower_case`) takes the reference's fixed-shape
+    dispatch instead (`_moe_buffers`), which reads nothing on the host."""
     b, s, d = x.shape
     e, k = mcfg.num_experts, mcfg.experts_per_token
     cap = s if dropless else max(1, min(s, int(math.ceil(
@@ -188,6 +204,10 @@ def moe_apply(p, cfg: ArchConfig, mcfg: MoEConfig, x,
     topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
     # load-balance auxiliary loss (Switch-style, over all tokens)
     me = probs.mean(dim=(0, 1))
+    if x.is_meta:
+        ce = F.one_hot(topi, e).to(torch.float32).mean(dim=(0, 1, 2))
+        aux = e * torch.sum(me * ce) * mcfg.aux_loss_coef
+        return _moe_buffers(p, x, topi, topw, e, cap), aux
     ce = torch.bincount(topi.reshape(-1), minlength=e).to(torch.float32) / (
         b * s * k)
     aux = e * torch.sum(me * ce) * mcfg.aux_loss_coef
@@ -216,6 +236,36 @@ def moe_apply(p, cfg: ArchConfig, mcfg: MoEConfig, x,
     out[order] = ys
     y = (out.reshape(b, s, k, d) * w.to(x.dtype).reshape(b, s, k, 1)).sum(2)
     return y, aux
+
+
+def _moe_buffers(p, x, topi, topw, e: int, cap: int):
+    """The reference's capacity dispatch at fixed shapes: each row's (S·k)
+    assignments set into an (E, cap, d) buffer at their rank within their
+    expert (those at or past cap into a spare slot that is dropped), every
+    slot through its expert's FFN, each assignment's slot gathered back and
+    the k weighted and summed. The buffer is pinned by `constrain_moe`, as
+    the reference's is. It computes `moe_apply`'s function with no host
+    read, at the cost of multiplying the empty slots."""
+    b, s, d = x.shape
+    k = topi.shape[-1]
+    flat_e = topi.reshape(b, s * k)                             # (B, S*k)
+    onehot = F.one_hot(flat_e, e)                               # (B, S*k, E)
+    pos = (torch.cumsum(onehot, dim=1) - onehot).gather(
+        2, flat_e[..., None])[..., 0]                           # rank
+    keep = pos < cap
+    slot = flat_e * cap + torch.clamp(pos, max=cap - 1)
+    tok = torch.arange(s, device=x.device).repeat_interleave(k)
+    dest = torch.where(keep, slot, e * cap)[..., None].expand(b, s * k, d)
+    buf = x.new_zeros((b, e * cap + 1, d)).scatter(1, dest, x[:, tok])
+    buf = constrain_moe(buf[:, :e * cap].reshape(b, e, cap, d))
+    h = F.silu(torch.einsum("becd,edf->becf", buf, p["gate"].to(x.dtype))) * \
+        torch.einsum("becd,edf->becf", buf, p["up"].to(x.dtype))
+    out_e = constrain_moe(torch.einsum("becf,efd->becd", h,
+                                       p["down"].to(x.dtype)))
+    got = out_e.reshape(b, e * cap, d).gather(
+        1, slot[..., None].expand(b, s * k, d))                 # (B, S*k, d)
+    w = (topw.reshape(b, s * k) * keep).to(x.dtype)
+    return (got * w[..., None]).reshape(b, s, k, d).sum(2)
 
 
 # ======================================================================

@@ -349,8 +349,8 @@ def test_build_case_prefill_decode_match_reference(arch, monkeypatch):
     plain = TLM.constrain
     monkeypatch.setattr(TLM, "constrain", lambda x: (
         seen.append(TCTX._ACT_SHARDING.get()), plain(x))[1])
-    # caches with room for the decoded token (the reference drops a write
-    # past the end, the port raises)
+    # caches with room for the decoded token (the reference clamps a write
+    # past the end into the last slot, the port raises)
     jl, jc = jpre.fn(jp, {"tokens": jnp.asarray(toks)},
                      jbuild(jcfg).make_cache(B, S + 8, jnp.bfloat16))
     tcache = tbuild(tcfg).make_cache(B, S + 8, torch.bfloat16, device="cpu")

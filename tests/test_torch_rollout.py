@@ -207,7 +207,9 @@ def test_port_imports_neither_jax_nor_reference():
             "kernels/flash_attention/ops.py",
             "kernels/ssm_scan/ops.py", "launch/mesh.py", "launch/shapes.py",
             "launch/steps.py", "launch/serve.py", "sharding/specs.py",
-            "sharding/context.py"} <= names
+            "sharding/context.py", "launch/dryrun.py",
+            "launch/hlo_analysis.py", "launch/roofline.py",
+            "launch/augment_roofline.py", "launch/reshard.py"} <= names
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib", "flax", "repro"}
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"

@@ -3872,8 +3872,15 @@ def phase_launch(dev, card, actor):
     return launches, row
 
 
-DRYRUN_CASES = (("xlstm-125m", "decode_32k", "multi", 512),
-                ("tinyllama-1.1b", "train_4k", "single", 256))
+# (arch, shape, mesh, devices, {scaled loop's site: trip count})
+DRYRUN_CASES = (
+    ("xlstm-125m", "decode_32k", "multi", 512, {}),
+    ("tinyllama-1.1b", "train_4k", "single", 256, {}),
+    ("xlstm-125m", "train_4k", "single", 256,
+     {"models/blocks.py:_mlstm_scan": 4096,
+      "models/blocks.py:_slstm_apply": 4096}),
+    ("jamba-v0.1-52b", "prefill_32k", "single", 256,
+     {"kernels/ssm_scan/ref.py:ssm_scan_ref": 32768}))
 
 
 def phase_dryrun(dev, card, row23b, cases=DRYRUN_CASES, timeout=600):
@@ -3882,8 +3889,12 @@ def phase_dryrun(dev, card, row23b, cases=DRYRUN_CASES, timeout=600):
     (run side by side, on the host: meta tensors over a fake process group
     of 256 or 512 ranks, no kernel, no device memory): each must print
     "1 ok, 0 skipped, 0 errors / 1 cases" and write an ok record with the
-    mesh's devices, per-device FLOPs and the analytic terms. That proves
-    this torch has the fake group and the counting modes. (b) The analytic
+    mesh's devices, per-device FLOPs, the analytic terms and, for xLSTM's
+    train step and Jamba's prefill, each recurrence scaled from two
+    counted steps to its trip count (`loops_scaled`, `sharding.loops`):
+    the mLSTM and sLSTM loops forward and backward, the Mamba scan's plain
+    version over 32k tokens. That proves this torch has the fake group,
+    the counting modes and the scaled loops. (b) The analytic
     roofline (`launch.roofline.analytic_terms` at n_dev = 1, dp = 1, the
     H100 constants) of phase 23b's three tinyllama-1.1b shapes beside the
     times 23b measured: a train step at 4 x 2048, a prefill at 1 x 2048,
@@ -3904,7 +3915,7 @@ def phase_dryrun(dev, card, row23b, cases=DRYRUN_CASES, timeout=600):
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True)) for case in cases]
     rows = []
-    for (arch, shape, mesh, n_dev), proc in procs:
+    for (arch, shape, mesh, n_dev, loops), proc in procs:
         try:
             stdout, stderr = proc.communicate(timeout=timeout)
         finally:
@@ -3917,10 +3928,13 @@ def phase_dryrun(dev, card, row23b, cases=DRYRUN_CASES, timeout=600):
              rec.get("traceback"))
         assert rec["status"] == "ok" and rec["devices"] == n_dev, rec
         assert rec["hlo_flops"] > 0 and "a_compute_s" in rec, rec
+        assert {site: v["trip_count"] for site, v in
+                rec["loops_scaled"].items()} == loops, rec["loops_scaled"]
         rows.append({k: rec[k] for k in (
             "arch", "shape", "mesh", "devices", "trace_s", "hlo_flops",
             "hlo_bytes", "collective_bytes", "bottleneck",
-            "useful_flop_ratio", "a_bottleneck", "reshards")})
+            "useful_flop_ratio", "a_bottleneck", "reshards",
+            "loops_scaled")})
     log("phase 24a dryrun " + json.dumps(rows))
     cfg = get_config(TRAIN_ARCH)
     S, B = row23b["seq"], row23b["batch"]

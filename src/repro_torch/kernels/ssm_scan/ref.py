@@ -7,9 +7,22 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.sharding.loops import scan
+
 #: steps per checkpointed chunk: the reference's `_mamba_scan_chunked` and
 #: the kernels' chunk
 CHUNK = 64
+
+
+def _scan_step(carry, xs, t: int):
+    """Step t of the recurrence on the fp32 state: ((h,), y_t fp32)."""
+    (h,) = carry
+    dt, bm, cm, x, a32 = xs
+    f32 = torch.float32
+    da = torch.exp(dt[:, t, :, None].to(f32) * a32)
+    h = da * h + (dt[:, t] * x[:, t])[..., None].to(f32) \
+        * bm[:, t, None, :].to(f32)
+    return (h,), torch.einsum("bin,bn->bi", h, cm[:, t].to(f32))
 
 
 def ssm_scan_ref(dt, a, bm, cm, x, h0, *, chunk_states: bool = False):
@@ -18,22 +31,22 @@ def ssm_scan_ref(dt, a, bm, cm, x, h0, *, chunk_states: bool = False):
     (y (B, S, I) in dt's dtype, hT (B, I, N) fp32), and with `chunk_states`
     also the fp32 state at the start of every 64-step chunk, (B,
     ceil(S / 64), I, N). As in the reference, dt_t * x_t is formed in the
-    inputs' dtype."""
+    inputs' dtype. Without chunk states the loop is `sharding.loops.scan`'s,
+    which the dry-run scales."""
     f32 = torch.float32
-    a32 = a.to(f32)
+    xs = (dt, bm, cm, x, a.to(f32))
     h = h0.to(f32)
+    if not chunk_states:
+        y, (h,) = scan("kernels/ssm_scan/ref.py:ssm_scan_ref", _scan_step,
+                       (h,), xs, dt.shape[1])
+        return y.to(dt.dtype), h
     ys, starts = [], []
     for t in range(dt.shape[1]):
-        if chunk_states and t % CHUNK == 0:
+        if t % CHUNK == 0:
             starts.append(h)
-        da = torch.exp(dt[:, t, :, None].to(f32) * a32)
-        h = da * h + (dt[:, t] * x[:, t])[..., None].to(f32) \
-            * bm[:, t, None, :].to(f32)
-        ys.append(torch.einsum("bin,bn->bi", h, cm[:, t].to(f32)))
-    y = torch.stack(ys, dim=1).to(dt.dtype)
-    if chunk_states:
-        return y, h, torch.stack(starts, dim=1)
-    return y, h
+        (h,), y = _scan_step((h,), xs, t)
+        ys.append(y)
+    return torch.stack(ys, dim=1).to(dt.dtype), h, torch.stack(starts, dim=1)
 
 
 def ssm_scan_bwd_ref(dt, a, bm, cm, x, hc, dy, dhT):

@@ -16,9 +16,12 @@ eagerly, on the CPU under the counting modes (`launch.hlo_analysis`) and
 the reshard policy (`launch.reshard`). No kernel runs and no device memory
 is touched: the steps take the plain attention and scan (`impl="ref"`), as
 the reference's dry-run traces its jnp paths. Where the reference lowers
-and compiles (`lower_s`, `compile_s`), a record has `trace_s`. A trace
-that runs past `TRACE_BUDGET_S` seconds (a per-token loop at 4k or 32k
-tokens) stops with an error that names the model line it reached.
+and compiles (`lower_s`, `compile_s`), a record has `trace_s`. The
+recurrences (Jamba's Mamba scan, xLSTM's mLSTM and sLSTM) trace two steps
+and count the second for the rest, as XLA counts a `lax.scan`'s body once
+(`sharding.loops`); `loops_scaled` names each with its loops and trip
+count. A trace that runs past `TRACE_BUDGET_S` seconds stops with an error
+that names the model line it reached.
 """
 from __future__ import annotations
 
@@ -36,10 +39,9 @@ from repro_torch.launch.roofline import analytic_terms
 from repro_torch.launch.shapes import SHAPES, adapt_config
 from repro_torch.launch.steps import build_case, lower_case
 
-# seconds a case's trace may take: the dense, vision, audio and MoE cases
-# take at most ~65 s on one CPU core with torch 2.13; the Jamba and xLSTM
-# train / prefill cases loop per token over 4k or 32k steps and would take
-# hours
+# seconds a case's trace may take: every case takes at most ~85 s on one
+# CPU core with torch 2.13; the Jamba and xLSTM train / prefill cases, were
+# their per-token loops not scaled, would take hours
 TRACE_BUDGET_S = 120.0
 
 

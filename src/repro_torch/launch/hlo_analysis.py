@@ -201,6 +201,7 @@ def analyze(lowered) -> Dict:
     out["peak_device_bytes"] = rec["argument_bytes"] + rec["temp_peak_bytes"]
     out["collectives"] = coll
     out["flops_by_op"] = dict(rec["flops"])
-    for key in ("reshards", "shards_dropped", "policy", "trace_s"):
+    for key in ("reshards", "shards_dropped", "policy", "loops_scaled",
+                "trace_s"):
         out[key] = rec[key]
     return out

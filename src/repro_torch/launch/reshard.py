@@ -255,6 +255,17 @@ class ReshardPolicy(TorchDispatchMode):
         if any(out.placements[i].is_replicate() for i in split):
             self.dropped[str(func)] += 1
 
+    def snapshot(self):
+        """The policy's own counts (`sharding.loops` scales them)."""
+        return (Counter(self.reshards), Counter(self.gathers),
+                Counter(self.reduces), Counter(self.dropped),
+                Counter(self.masked), self.wrapped)
+
+    def restore(self, snap):
+        (self.reshards, self.gathers, self.reduces, self.dropped,
+         self.masked) = (Counter(c) for c in snap[:5])
+        self.wrapped = snap[5]
+
     def _snapshot(self):
         return [c.snapshot() for c in self.counters]
 

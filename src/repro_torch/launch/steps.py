@@ -254,7 +254,15 @@ class Lowered:
     counters saw: per-device FLOPs by op and eager bytes, collectives'
     output bytes and counts by kind, the reshard policy's record, the
     arguments' and the fresh outputs' local bytes, the peak of what the
-    step allocates (`MemTracker`, local shards), the trace's seconds."""
+    step allocates (`MemTracker`, local shards), the trace's seconds, and
+    `loops_scaled`. The trace arms `sharding.loops` over the counters:
+    each recurrence of more than two steps (the Mamba scan's plain
+    version, mLSTM, sLSTM) runs two steps and counts the second for all
+    but the first, forward and backward (site -> loops and trip count in
+    `loops_scaled`). Its `temp_peak_bytes` then holds two steps' state
+    and the full-length outputs: a lower bound on the eager loop's, which
+    keeps every step's graph, nearer the reference's checkpointed 64-step
+    chunks."""
 
     def __init__(self, case: Case, mesh, budget_s: float = float("inf")):
         from torch.distributed.tensor import distribute_tensor
@@ -281,11 +289,13 @@ class Lowered:
                                                      LocalCounter)
         from repro_torch.launch.reshard import (ReshardPolicy,
                                                 greedy_redistribute_plans)
+        from repro_torch.sharding.loops import scaled_loops
         mem, local, comm = MemTracker(), LocalCounter(), CollectiveCounter()
         policy = ReshardPolicy(self.dp_dims, counters=(local, comm),
                                budget_s=self.budget_s)
         t0 = time.time()
-        with greedy_redistribute_plans(), mem, local, comm, policy:
+        with greedy_redistribute_plans(), mem, local, comm, policy, \
+                scaled_loops((local, comm, policy)) as loops:
             out = self.case.fn(*self.args)
         ids = {id(x) for x in tree_leaves(self.args)}
         fresh = [x for x in tree_leaves(out)
@@ -298,7 +308,8 @@ class Lowered:
             "output_bytes": _local_bytes(fresh),
             "temp_peak_bytes": sum(
                 d["Total"] for d in mem.get_tracker_snapshot("peak").values()),
-            "trace_s": round(time.time() - t0, 2), **policy.record()}
+            "trace_s": round(time.time() - t0, 2),
+            "loops_scaled": loops.record(), **policy.record()}
         return self._record
 
 

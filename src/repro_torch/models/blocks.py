@@ -32,6 +32,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import (apply_rope, init_linear, linear,
                                        log_sigmoid, softplus)
 from repro_torch.sharding.context import constrain_moe
+from repro_torch.sharding.loops import scan
 
 
 def init_attn(generator, cfg: ArchConfig, *, lead=(), device=None):
@@ -455,30 +456,34 @@ def _mlstm_qkvif(p, scfg: SSMConfig, x):
     return (q, k, v, igate, log_sigmoid(fgate)), z
 
 
+def _mlstm_step(carry, qkvif, t: int):
+    """Step t of the stabilised mLSTM recurrence: ((C, n, m), h_t)."""
+    C, nvec, m = carry
+    q, k, v, igate, fgate = qkvif
+    qt, kt, vt, it, ft = q[:, t], k[:, t], v[:, t], igate[:, t], fgate[:, t]
+    m_new = torch.maximum(ft + m, it)
+    i_p = torch.exp(it - m_new)
+    f_p = torch.exp(ft + m - m_new)
+    C = f_p[..., None, None] * C + i_p[..., None, None] * (
+        vt[..., :, None] * kt[..., None, :])                   # (B,nh,dh,dh)
+    nvec = f_p[..., None] * nvec + i_p[..., None] * kt
+    num = torch.einsum("bhij,bhj->bhi", C, qt)
+    den = torch.clamp(torch.abs(torch.einsum("bhj,bhj->bh", nvec, qt)),
+                      min=1.0)
+    return (C, nvec, m_new), num / den[..., None]
+
+
 def _mlstm_scan(qkvif, state: Dict):
     """The stabilised mLSTM recurrence, one step per position, from
-    `state`'s C, n and m. The reference pads S to 64-step chunks whose
-    padded steps leave the state as it is, so a plain loop over the S real
-    steps reaches the same state. Returns (h (B, S, nh, dh), the final
-    {"C", "n", "m"}); `state` is not written (autograd may still need
-    it)."""
-    q, k, v, igate, fgate = qkvif
-    C, nvec, m = state["C"], state["n"], state["m"]
-    hs = []
-    for t in range(q.shape[1]):
-        qt, kt, vt, it, ft = q[:, t], k[:, t], v[:, t], igate[:, t], fgate[:, t]
-        m_new = torch.maximum(ft + m, it)
-        i_p = torch.exp(it - m_new)
-        f_p = torch.exp(ft + m - m_new)
-        C = f_p[..., None, None] * C + i_p[..., None, None] * (
-            vt[..., :, None] * kt[..., None, :])               # (B,nh,dh,dh)
-        nvec = f_p[..., None] * nvec + i_p[..., None] * kt
-        m = m_new
-        num = torch.einsum("bhij,bhj->bhi", C, qt)
-        den = torch.clamp(torch.abs(torch.einsum("bhj,bhj->bh", nvec, qt)),
-                          min=1.0)
-        hs.append(num / den[..., None])
-    return torch.stack(hs, dim=1), {"C": C, "n": nvec, "m": m}
+    `state`'s C, n and m (`sharding.loops.scan`). The reference pads S to
+    64-step chunks whose padded steps leave the state as it is, so a plain
+    loop over the S real steps reaches the same state. Returns (h (B, S,
+    nh, dh), the final {"C", "n", "m"}); `state` is not written (autograd
+    may still need it)."""
+    hs, (C, nvec, m) = scan("models/blocks.py:_mlstm_scan", _mlstm_step,
+                            (state["C"], state["n"], state["m"]), qkvif,
+                            qkvif[0].shape[1])
+    return hs, {"C": C, "n": nvec, "m": m}
 
 
 def _mlstm_apply(p, scfg: SSMConfig, x, state: Dict):
@@ -534,32 +539,37 @@ def init_slstm_cache(cfg: ArchConfig, scfg: SSMConfig, batch: int, *,
             "m": torch.full(shp, -1e30, dtype=f32, device=device)}
 
 
+def _slstm_step(carry, xs, t: int):
+    """Step t of the sLSTM recurrence: ((c, n, h, m), h_t)."""
+    c, n, h, m = carry
+    wx, rk = xs
+    rec = torch.einsum("bhj,hjk->bhk", h, rk)                  # (B,nh,4dh)
+    zt, it, ft, ot = torch.chunk(wx[:, t] + rec, 4, dim=-1)
+    zt = torch.tanh(zt)
+    ot = torch.sigmoid(ot)
+    ft = log_sigmoid(ft)
+    m_new = torch.maximum(ft + m, it)
+    i_p = torch.exp(it - m_new)
+    f_p = torch.exp(ft + m - m_new)
+    c = f_p * c + i_p * zt
+    n = f_p * n + i_p
+    h = ot * c / torch.clamp(n, min=1.0)
+    return (c, n, h, m_new), h
+
+
 def _slstm_apply(p, cfg: ArchConfig, scfg: SSMConfig, x, state: Dict):
     """The sLSTM recurrence, one step per position, from `state`'s c, n, h
-    and m: (block output, the final {"c", "n", "h", "m"}); `state` is not
-    written (autograd may still need it)."""
+    and m (`sharding.loops.scan`): (block output, the final {"c", "n", "h",
+    "m"}); `state` is not written (autograd may still need it)."""
     b, s, _ = x.shape
     inner, nh, dh = _xlstm_dims(cfg, scfg)
     xi = linear(p["up"], x)
     wx = linear(p["w_gates"], xi).reshape(b, s, nh, 4 * dh).to(torch.float32)
     rk = p["r_gates"].to(torch.float32)
-    c, n, h, m = state["c"], state["n"], state["h"], state["m"]
-    hs = []
-    for t in range(s):
-        rec = torch.einsum("bhj,hjk->bhk", h, rk)              # (B,nh,4dh)
-        zt, it, ft, ot = torch.chunk(wx[:, t] + rec, 4, dim=-1)
-        zt = torch.tanh(zt)
-        ot = torch.sigmoid(ot)
-        ft = log_sigmoid(ft)
-        m_new = torch.maximum(ft + m, it)
-        i_p = torch.exp(it - m_new)
-        f_p = torch.exp(ft + m - m_new)
-        c = f_p * c + i_p * zt
-        n = f_p * n + i_p
-        h = ot * c / torch.clamp(n, min=1.0)
-        m = m_new
-        hs.append(h)
-    y = torch.stack(hs, dim=1).reshape(b, s, inner).to(x.dtype)
+    hs, (c, n, h, m) = scan("models/blocks.py:_slstm_apply", _slstm_step,
+                            (state["c"], state["n"], state["h"], state["m"]),
+                            (wx, rk), s)
+    y = hs.reshape(b, s, inner).to(x.dtype)
     return linear(p["down"], y), {"c": c, "n": n, "h": h, "m": m}
 
 

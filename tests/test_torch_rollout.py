@@ -209,7 +209,8 @@ def test_port_imports_neither_jax_nor_reference():
             "launch/steps.py", "launch/serve.py", "sharding/specs.py",
             "sharding/context.py", "launch/dryrun.py",
             "launch/hlo_analysis.py", "launch/roofline.py",
-            "launch/augment_roofline.py", "launch/reshard.py"} <= names
+            "launch/augment_roofline.py", "launch/reshard.py",
+            "sharding/loops.py"} <= names
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib", "flax", "repro"}
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"

@@ -2619,8 +2619,8 @@ def phase_serving(dev, card, actor, archs=SERVE_ARCHS, reduced=False,
 
 
 def phase_flash(dev, cases=FA_CASES):
-    """flash_attention kernel vs plain version (`impl="ref"`) through the
-    (B, S, H, hd) entry point, fp32 and bf16; returns (max error over the
+    """flash_attention kernel through the (B, S, H, hd) entry point vs its
+    plain version (`flash_plain`), fp32 and bf16; returns (max error over the
     fp32 cases, {"tinyllama": ..., "jamba": ...}: the fp32 inputs of the
     two prefill cases, for timing)."""
     from repro_torch.kernels.flash_attention import ops as FA
@@ -2634,8 +2634,8 @@ def phase_flash(dev, cases=FA_CASES):
         for dtype, tol in FA_TOL.items():
             q, k, v = (t.to(dtype) for t in (q32, k32, v32))
             got = FA.attention(q, k, v, causal=causal, window=window)
-            want = FA.attention(q.float(), k.float(), v.float(),
-                                causal=causal, window=window, impl="ref")
+            want = flash_plain(q.float(), k.float(), v.float(),
+                               causal=causal, window=window)
             sync(dev)
             assert got.dtype == dtype and got.shape == (B, S, H, hd)
             assert bool(torch.isfinite(got).all()), case
@@ -3872,15 +3872,22 @@ def phase_launch(dev, card, actor):
     return launches, row
 
 
-# (arch, shape, mesh, devices, {scaled loop's site: trip count})
+# (arch, shape, mesh, devices, {scaled loop's site: trip count}, whether
+# its peak must fit the card's 80 GiB)
 DRYRUN_CASES = (
-    ("xlstm-125m", "decode_32k", "multi", 512, {}),
-    ("tinyllama-1.1b", "train_4k", "single", 256, {}),
+    ("xlstm-125m", "decode_32k", "multi", 512, {}, False),
+    ("tinyllama-1.1b", "train_4k", "single", 256,
+     {"models/attention.py:_fwd": 8, "models/attention.py:_fwd_q_block": 4,
+      "models/attention.py:_bwd": 4, "models/attention.py:_bwd_kv_block": 8},
+     True),
     ("xlstm-125m", "train_4k", "single", 256,
      {"models/blocks.py:_mlstm_scan": 4096,
-      "models/blocks.py:_slstm_apply": 4096}),
+      "models/blocks.py:_slstm_apply": 4096}, False),
     ("jamba-v0.1-52b", "prefill_32k", "single", 256,
-     {"kernels/ssm_scan/ref.py:ssm_scan_ref": 32768}))
+     {"kernels/ssm_scan/ref.py:ssm_scan_ref": 32768,
+      "models/attention.py:_fwd": 64, "models/attention.py:_fwd_q_block": 32},
+     True))
+CARD_BYTES = 80 * 2 ** 30
 
 
 def phase_dryrun(dev, card, row23b, cases=DRYRUN_CASES, timeout=600):
@@ -3893,8 +3900,11 @@ def phase_dryrun(dev, card, row23b, cases=DRYRUN_CASES, timeout=600):
     train step and Jamba's prefill, each recurrence scaled from two
     counted steps to its trip count (`loops_scaled`, `sharding.loops`):
     the mLSTM and sLSTM loops forward and backward, the Mamba scan's plain
-    version over 32k tokens. That proves this torch has the fake group,
-    the counting modes and the scaled loops. (b) The analytic
+    version over 32k tokens, and the plain blocked attention's query and
+    KV block loops (tinyllama-1.1b's train step and Jamba's prefill). Each
+    row has `peak_device_bytes`; those two cases' must fit the card's 80
+    GiB. That proves this torch has the fake group, the counting modes
+    and the scaled loops. (b) The analytic
     roofline (`launch.roofline.analytic_terms` at n_dev = 1, dp = 1, the
     H100 constants) of phase 23b's three tinyllama-1.1b shapes beside the
     times 23b measured: a train step at 4 x 2048, a prefill at 1 x 2048,
@@ -3915,7 +3925,7 @@ def phase_dryrun(dev, card, row23b, cases=DRYRUN_CASES, timeout=600):
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True)) for case in cases]
     rows = []
-    for (arch, shape, mesh, n_dev, loops), proc in procs:
+    for (arch, shape, mesh, n_dev, loops, fits), proc in procs:
         try:
             stdout, stderr = proc.communicate(timeout=timeout)
         finally:
@@ -3930,11 +3940,13 @@ def phase_dryrun(dev, card, row23b, cases=DRYRUN_CASES, timeout=600):
         assert rec["hlo_flops"] > 0 and "a_compute_s" in rec, rec
         assert {site: v["trip_count"] for site, v in
                 rec["loops_scaled"].items()} == loops, rec["loops_scaled"]
+        assert not fits or rec["peak_device_bytes"] <= CARD_BYTES, \
+            (arch, shape, rec["peak_device_bytes"])
         rows.append({k: rec[k] for k in (
             "arch", "shape", "mesh", "devices", "trace_s", "hlo_flops",
             "hlo_bytes", "collective_bytes", "bottleneck",
-            "useful_flop_ratio", "a_bottleneck", "reshards",
-            "loops_scaled")})
+            "useful_flop_ratio", "a_bottleneck", "peak_device_bytes",
+            "reshards", "loops_scaled")})
     log("phase 24a dryrun " + json.dumps(rows))
     cfg = get_config(TRAIN_ARCH)
     S, B = row23b["seq"], row23b["batch"]
@@ -3957,6 +3969,16 @@ def phase_dryrun(dev, card, row23b, cases=DRYRUN_CASES, timeout=600):
         assert measured >= bound_ms, (name, measured, bound_ms)
     log("phase 24b roofline " + json.dumps(bounds))
     log(f"phase 24 took {time.perf_counter() - t0:.3f} s")
+
+
+def flash_plain(q, k, v, *, causal=True, window=0):
+    """The flash kernel's plain version (`kernels/flash_attention/ref.py::
+    attention_ref`, the naive oracle the kernel is held and timed against)
+    in the (B, S, H, hd) layout of `ops.attention`."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    o = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                      v.transpose(1, 2), causal=causal, window=window)
+    return o.transpose(1, 2)
 
 
 def _sdpa_call(q, k, v):
@@ -4109,8 +4131,7 @@ def measure(env_timing, chain_timing, step_timing, flash_timing, ssm_timing,
     step_bytes = nbytes(*step_timing, stx)      # inputs + the (B, A) output
     fq, fk, fv = flash_timing["tinyllama"]      # (B, S, H, hd), (B, T, KV, hd)
     flash_k = lambda: FA.attention(fq, fk, fv, causal=True)  # noqa: E731
-    flash_p = lambda: FA.attention(fq, fk, fv, causal=True,  # noqa: E731
-                                   impl="ref")
+    flash_p = lambda: flash_plain(fq, fk, fv)  # noqa: E731
     flash_nb, flash_flops, flash_terms = flash_work(fq, fk, fv)
     flash_lib = _sdpa_call(fq, fk, fv)
     # the launch floor: device time of a one-element kernel, and the time
@@ -4378,8 +4399,7 @@ def flash_variants(shapes, it=20):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (t.to(dtype) for t in inputs)
             k_fn = lambda: FA.attention(q, k, v, causal=True)  # noqa: E731
-            p_fn = lambda: FA.attention(q, k, v, causal=True,  # noqa: E731
-                                        impl="ref")
+            p_fn = lambda: flash_plain(q, k, v)  # noqa: E731
             nb, flops, terms = flash_work(q, k, v)
             bound, top = bound_of(terms)
             out.append({

@@ -4,16 +4,20 @@ of `models.attention.flash_attention` (the reference's
 (B, S, H, hd).
 
 `impl="auto"` dispatches by the tensors' device: a CUDA tensor launches the
-hand-written kernels (they launch or raise; there is no fallback), a CPU
-tensor takes the plain versions. When autograd will need the gradient (grad
-mode on and an input that requires it), the call is a
-`torch.autograd.Function`: its forward is the forward kernel, which then
-also writes each row's log-sum-exp, and its backward the backward kernel
-(`flash_attention_bwd`), the counterpart of the reference's custom VJP; no
-(S, T) matrix is kept or made. Otherwise (every serving prefill) the
-forward kernel runs alone, without the lse. `impl="ref"` takes the plain
-version on any device and differentiates it with plain autograd. The
-head-major views the kernels read are transposes, not copies.
+hand-written kernels (they launch or raise; there is no fallback). When
+autograd will need the gradient (grad mode on and an input that requires
+it), that call is a `torch.autograd.Function`: its forward is the forward
+kernel, which then also writes each row's log-sum-exp, and its backward the
+backward kernel (`flash_attention_bwd`), the counterpart of the reference's
+custom VJP; no (S, T) matrix is kept or made. Otherwise (every serving
+prefill) the forward kernel runs alone, without the lse. The head-major
+views the kernels read are transposes, not copies.
+
+`impl="ref"` on any device, and every CPU tensor, take the plain attention,
+the reference's blocked `flash_attention_jnp` with its blocked backward
+(`models.attention.flash_attention`), with or without grad. The kernels'
+oracles in `ref.py` stay what the tests and `chip_smoke.py` hold the
+kernels to.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ import torch
 
 from repro_torch.kernels.flash_attention.kernel import (flash_attention,
                                                         flash_attention_bwd)
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.models.attention import flash_attention as blocked_attention
 
 
 class FlashAttention(torch.autograd.Function):
@@ -52,10 +56,11 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
               impl: str = "auto"):
     if impl not in ("auto", "ref"):
         raise ValueError(f"impl must be auto|ref, got {impl!r}")
-    if impl == "auto" and torch.is_grad_enabled() and (
+    if impl == "ref" or q.device.type == "cpu":
+        return blocked_attention(q, k, v, causal=causal, window=window)
+    if torch.is_grad_enabled() and (
             q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, int(window))
-    fn = flash_attention if impl == "auto" else attention_ref
-    o = fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-           causal=causal, window=window)
+    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=causal, window=window)
     return o.transpose(1, 2)

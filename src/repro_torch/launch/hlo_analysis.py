@@ -30,8 +30,9 @@ What the counters see is per device, like the reference's
 * **Memory**: the arguments' local shard bytes, exactly, plus the peak
   of what the step allocates on top of them (temporaries and outputs,
   `torch.distributed._tools.MemTracker` over the local shards, which it
-  takes on meta tensors): `peak_device_bytes`. Eager frees nothing early
-  that XLA's buffer assignment would, so the port's temporaries are
+  takes on meta tensors; `LocalMemTracker` leaves out DTensor's
+  propagation at global shapes): `peak_device_bytes`. Eager frees nothing
+  early that XLA's buffer assignment would, so the port's temporaries are
   larger than a compiled step's.
 
 The per-device terms take the H100 constants of `launch.mesh`.
@@ -43,6 +44,7 @@ from typing import Dict
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed._tools.mem_tracker import MemTracker
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.debug import CommDebugMode
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -128,6 +130,27 @@ class LocalCounter(TorchDispatchMode):
 
     def restore(self, snap):
         self.flops, self.bytes = Counter(snap[0]), snap[1]
+
+
+class LocalMemTracker(MemTracker):
+    """`MemTracker` over the local ops only: DTensor's sharding propagation
+    (ops under a FakeTensorMode it enters, tensors at global shapes) is
+    passed through untracked, as torch 2.13's MemTracker does itself.
+    torch 2.11's tracks it, and a propagation's global tensors then set a
+    step's peak, many times the local one."""
+
+    def __enter__(self):
+        from torch._guards import active_fake_mode
+        self._entry_fake = active_fake_mode()
+        return super().__enter__()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch._guards import active_fake_mode
+        if not any(issubclass(t, DTensor) for t in types) and (
+                _not_local(types) or active_fake_mode() is not
+                self._entry_fake):
+            return func(*args, **(kwargs or {}))
+        return super().__torch_dispatch__(func, types, args, kwargs)
 
 
 class CollectiveCounter(CommDebugMode):

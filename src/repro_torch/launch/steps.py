@@ -284,13 +284,14 @@ class Lowered:
     def analyze(self) -> Dict:
         if self._record is not None:
             return self._record
-        from torch.distributed._tools.mem_tracker import MemTracker
         from repro_torch.launch.hlo_analysis import (CollectiveCounter,
-                                                     LocalCounter)
+                                                     LocalCounter,
+                                                     LocalMemTracker)
         from repro_torch.launch.reshard import (ReshardPolicy,
                                                 greedy_redistribute_plans)
         from repro_torch.sharding.loops import scaled_loops
-        mem, local, comm = MemTracker(), LocalCounter(), CollectiveCounter()
+        mem, local, comm = (LocalMemTracker(), LocalCounter(),
+                            CollectiveCounter())
         policy = ReshardPolicy(self.dp_dims, counters=(local, comm),
                                budget_s=self.budget_s)
         t0 = time.time()

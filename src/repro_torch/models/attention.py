@@ -1,22 +1,39 @@
-"""Attention in plain PyTorch (port of `repro/models/attention.py`, forward
-only). Layout (B, S, H, hd) for queries and (B, T, KV, hd) for keys and
-values, as in the reference; GQA query head h reads KV head h // (H / KV).
+"""Attention in plain PyTorch (port of `repro/models/attention.py`). Layout
+(B, S, H, hd) for queries and (B, T, KV, hd) for keys and values, as in the
+reference; GQA query head h reads KV head h // (H / KV).
 
-* :func:`flash_attention` — the blocked online-softmax forward of the
-  reference's `flash_attention_jnp` (query blocks outer, KV blocks inner,
-  running max / sum / accumulator in f32). It is a plain version; the
-  model's prefill goes through `kernels.flash_attention.ops.attention`,
-  which launches the hand-written kernel on the card.
+* :func:`flash_attention` — the reference's `flash_attention_jnp`: a
+  blocked online softmax (query blocks outer, KV blocks inner, running
+  max, sum and accumulator in f32) with its blocked backward (KV blocks
+  outer, query blocks inner: the reference's custom VJP `flash_bwd`), a
+  `torch.autograd.Function` that saves q, k, v, the output and each row's
+  log-sum-exp and nothing of size S x T. It is the plain attention of the
+  port: `kernels.flash_attention.ops.attention` takes it for `impl="ref"`
+  and for every CPU tensor; on the card `impl="auto"` launches the
+  hand-written kernels instead.
 * :func:`decode_attention` — one query token against a (possibly rolling)
   KV cache. The reference computes it outside any Pallas kernel, and so
   does the port.
-* :func:`simple_attention` — naive O(S^2) oracle.
+* :func:`simple_attention` — naive O(S^2) oracle, used only to check.
+
+The block loops run through `sharding.loops.scan`, so the dry-run counts
+two blocks of each loop and scales them. Inside a block the query heads
+stay flat, (B, qb, H, hd), and each K / V block is expanded to the query
+heads (`repeat_interleave` over the head dim, as an `index_select`); the
+backward sums the expanded blocks' gradients back onto the KV heads
+(`index_add_`). On DTensors under an activation sharding the blocks run on
+each device's shards, the query heads split over `model`
+(`sharding.context.on_head_shards`), where the reference's compile splits
+(KV, G).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from repro_torch.sharding.context import on_head_shards
+from repro_torch.sharding.loops import scan
 
 NEG_INF = -1e30
 
@@ -54,53 +71,200 @@ def simple_attention(q, k, v, *, causal: bool, window: int = 0,
     return out.reshape(b, s, h, hd)
 
 
+# ---------------------------------------------------------------- blocked
+def _pad(x, n: int):
+    """`x` (B, L, ...) zero-padded along L to `n` (no op when it is)."""
+    if x.shape[1] == n:
+        return x
+    return torch.nn.functional.pad(
+        x, (0, 0) * (x.ndim - 2) + (0, n - x.shape[1]))
+
+
+def _kv_heads(h: int, kv: int, g: int, h0: int, device):
+    """The KV head each of the h query heads reads, of kv: query head i
+    reads KV head (h0 + i) // g (with h0 = 0 and h = kv g,
+    `repeat_interleave` over the head dim); None where that is every KV
+    head once."""
+    if g == 1 and h0 == 0 and h == kv:
+        return None
+    return torch.div(h0 + torch.arange(h, device=device), g,
+                     rounding_mode="floor")
+
+
+def _expand(x, idx):
+    """A K / V block (B, kb, KV, hd) -> (B, kb, H, hd) on the query heads'
+    KV heads `idx`."""
+    return x if idx is None else x.index_select(2, idx)
+
+
+def _fold(x, idx, kv: int):
+    """The gradient of `_expand`: (B, kb, H, hd) summed onto the KV heads
+    each query head read."""
+    if idx is None:
+        return x
+    out = torch.zeros(x.shape[:2] + (kv, x.shape[3]), dtype=x.dtype,
+                      device=x.device)
+    return out.index_add_(2, idx, x)
+
+
+def _block_mask(qpos, kpos, t: int, causal: bool, window: int):
+    """(qb, kb): the reference's `_mask_block`, padded keys (>= t) out."""
+    return _mask(qpos, kpos, causal, window) & (kpos < t)[None, :]
+
+
+def _fwd(q, k, v, t: int, *, causal, window, q_block, k_block, q_offset,
+         g, h0):
+    """The blocked forward on inputs padded to the blocks (t: the keys
+    before padding; query head i reads KV head (h0 + i) // g): the f32
+    output (B, S', H, hd) and each row's lse (B, S', H), the reference's
+    `_flash_fwd_scan`."""
+    b, sp, h, hd = q.shape
+    idx = _kv_heads(h, k.shape[2], g, h0, q.device)
+    nq, nk = sp // q_block, k.shape[1] // k_block
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+
+    def kv_step(carry, xs, j):
+        m, l, acc = carry
+        qblk, qpos = xs
+        kpos = j * k_block + torch.arange(k_block, device=dev)
+        kblk = _expand(k[:, j * k_block:(j + 1) * k_block], idx)
+        vblk = _expand(v[:, j * k_block:(j + 1) * k_block], idx)
+        sc = torch.einsum("bqhd,bchd->bhqc", qblk, kblk).to(
+            torch.float32) * scale
+        sc = torch.where(_block_mask(qpos, kpos, t, causal, window), sc,
+                         NEG_INF)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        p = torch.exp(sc - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqc,bchd->bhqd", p.to(vblk.dtype), vblk).to(torch.float32)
+        return (m_new, l, acc), None
+
+    def q_step(carry, xs, i):
+        qblk = q[:, i * q_block:(i + 1) * q_block]            # (B,qb,H,hd)
+        qpos = i * q_block + torch.arange(q_block, device=dev) + q_offset
+        m0 = torch.full((b, h, q_block), NEG_INF, dtype=torch.float32,
+                        device=dev)
+        l0 = torch.zeros((b, h, q_block), dtype=torch.float32, device=dev)
+        a0 = torch.zeros((b, h, q_block, hd), dtype=torch.float32,
+                         device=dev)
+        _, (m, l, acc) = scan("models/attention.py:_fwd_q_block", kv_step,
+                              (m0, l0, a0), (qblk, qpos), nk)
+        out = acc / torch.clamp(l, min=1e-30)[..., None]      # (B,H,qb,hd)
+        lse = m + torch.log(torch.clamp(l, min=1e-30))        # (B,H,qb)
+        return carry, (out.transpose(1, 2), lse.transpose(1, 2))
+
+    (out, lse), _ = scan("models/attention.py:_fwd", q_step, (), (), nq)
+    return out.reshape(b, sp, h, hd), lse.reshape(b, sp, h)
+
+
+def _bwd(q, k, v, out, lse, do, t: int, *, causal, window, q_block,
+         k_block, q_offset, g, h0):
+    """(dq, dk, dv) in f32 from inputs padded to the blocks (out and dO
+    zero in the padded rows): the reference's `flash_bwd`, KV blocks outer
+    and query blocks inner. D = rowsum(dO O), P = exp(scale S - lse), dV
+    += P^T dO, dP = dO V^T, dS = P (dP - D) scale, dQ += dS K, dK += dS^T
+    Q; dK and dV are kept per query head through the query loop and folded
+    onto the KV heads once per KV block."""
+    b, sp, h, hd = q.shape
+    tp, kv = k.shape[1], k.shape[2]
+    idx = _kv_heads(h, kv, g, h0, q.device)
+    nq, nk = sp // q_block, tp // k_block
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    f32 = torch.float32
+    d = (do.to(f32) * out.to(f32)).sum(dim=-1)                # (B,S',H)
+
+    def q_step(carry, xs, i):
+        dk_j, dv_j = carry
+        kblk, vblk, kpos = xs
+        rows = slice(i * q_block, (i + 1) * q_block)
+        qblk, do_b = q[:, rows].to(f32), do[:, rows].to(f32)  # (B,qb,H,hd)
+        lse_b = lse[:, rows].transpose(1, 2)                  # (B,H,qb)
+        d_b = d[:, rows].transpose(1, 2)
+        qpos = i * q_block + torch.arange(q_block, device=dev) + q_offset
+        sc = torch.einsum("bqhd,bchd->bhqc", qblk, kblk) * scale
+        sc = torch.where(_block_mask(qpos, kpos, t, causal, window), sc,
+                         NEG_INF)
+        p = torch.exp(sc - lse_b[..., None])                  # (B,H,qb,kb)
+        dv_j = dv_j + torch.einsum("bhqc,bqhd->bchd", p, do_b)
+        dp = torch.einsum("bqhd,bchd->bhqc", do_b, vblk)
+        ds = p * (dp - d_b[..., None]) * scale
+        dq_b = torch.einsum("bhqc,bchd->bqhd", ds, kblk)
+        dk_j = dk_j + torch.einsum("bhqc,bqhd->bchd", ds, qblk)
+        return (dk_j, dv_j), dq_b
+
+    def kv_step(carry, xs, j):
+        (dq,) = carry
+        cols = slice(j * k_block, (j + 1) * k_block)
+        kblk = _expand(k[:, cols].to(f32), idx)               # (B,kb,H,hd)
+        vblk = _expand(v[:, cols].to(f32), idx)
+        kpos = j * k_block + torch.arange(k_block, device=dev)
+        z = torch.zeros((b, k_block, h, hd), dtype=f32, device=dev)
+        dq_blocks, (dk_j, dv_j) = scan(
+            "models/attention.py:_bwd_kv_block", q_step, (z, z),
+            (kblk, vblk, kpos), nq)
+        dq = dq + dq_blocks.reshape(b, sp, h, hd)
+        return (dq,), (_fold(dk_j, idx, kv), _fold(dv_j, idx, kv))
+
+    dq0 = torch.zeros((b, sp, h, hd), dtype=f32, device=dev)
+    (dk, dv), (dq,) = scan("models/attention.py:_bwd", kv_step, (dq0,), (),
+                           nk)
+    return dq, dk.reshape(b, tp, kv, hd), dv.reshape(b, tp, kv, hd)
+
+
+class BlockedAttention(torch.autograd.Function):
+    """The blocked attention with the blocked backward: (q, k, v, out,
+    lse) saved. Outputs the output in q's dtype and the lse (B, S, H) f32
+    (not differentiable)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_block, k_block, q_offset,
+                g, h0):
+        s, t = q.shape[1], k.shape[1]
+        nq, nk = -(-s // q_block), -(-t // k_block)
+        kw = dict(causal=causal, window=window, q_block=q_block,
+                  k_block=k_block, q_offset=q_offset, g=g, h0=h0)
+        out, lse = _fwd(_pad(q, nq * q_block), _pad(k, nk * k_block),
+                        _pad(v, nk * k_block), t, **kw)
+        out, lse = out[:, :s].to(q.dtype), lse[:, :s]
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        kw = ctx.kw
+        s, t = q.shape[1], k.shape[1]
+        sp = -(-s // kw["q_block"]) * kw["q_block"]
+        tp = -(-t // kw["k_block"]) * kw["k_block"]
+        dq, dk, dv = _bwd(_pad(q, sp), _pad(k, tp), _pad(v, tp),
+                          _pad(out, sp), _pad(lse, sp), _pad(do, sp), t,
+                          **kw)
+        return (dq[:, :s].to(q.dtype), dk[:, :t].to(k.dtype),
+                dv[:, :t].to(v.dtype)) + (None,) * 7
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_block: int = 512, k_block: int = 1024,
                     q_offset: int = 0):
-    """Blocked online-softmax attention, forward (`flash_attention_jnp`).
+    """Blocked online-softmax attention with the blocked backward
+    (`flash_attention_jnp`).
 
-    q: (B, S, H, hd); k, v: (B, T, KV, hd); H % KV == 0. Returns
-    (B, S, H, hd) in q's dtype. S and T are padded to the blocks here and
-    the padded keys masked, as the reference does."""
-    b, s, h, hd = q.shape
-    t, kv = k.shape[1], k.shape[2]
-    g = h // kv
-    q_block, k_block = min(q_block, s), min(k_block, t)
-    nq, nk = -(-s // q_block), -(-t // k_block)
-    dev = q.device
-    qp = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, nq * q_block - s))
-    kp = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, nk * k_block - t))
-    vp = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, nk * k_block - t))
-    qg = _gqa_split(qp, kv)                                   # (B,S',KV,G,hd)
-    scale = 1.0 / math.sqrt(hd)
-    outs = []
-    for qi in range(nq):
-        qblk = qg[:, qi * q_block:(qi + 1) * q_block]         # (B,qb,KV,G,hd)
-        qpos = qi * q_block + torch.arange(q_block, device=dev) + q_offset
-        m = torch.full((b, kv, g, q_block), NEG_INF, dtype=torch.float32,
-                       device=dev)
-        l = torch.zeros((b, kv, g, q_block), dtype=torch.float32, device=dev)
-        acc = torch.zeros((b, kv, g, q_block, hd), dtype=torch.float32,
-                          device=dev)
-        for ki in range(nk):
-            kblk = kp[:, ki * k_block:(ki + 1) * k_block]     # (B,kb,KV,hd)
-            vblk = vp[:, ki * k_block:(ki + 1) * k_block]
-            kpos = ki * k_block + torch.arange(k_block, device=dev)
-            sc = torch.einsum("bqkgh,bckh->bkgqc", qblk, kblk).to(
-                torch.float32) * scale
-            msk = _mask(qpos, kpos, causal, window) & (kpos < t)[None, :]
-            sc = torch.where(msk, sc, NEG_INF)
-            m_new = torch.maximum(m, sc.amax(dim=-1))
-            p = torch.exp(sc - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bkgqc,bckh->bkgqh", p.to(vblk.dtype), vblk).to(torch.float32)
-            m = m_new
-        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
-    out = torch.stack(outs, dim=3)                            # (B,KV,G,nq,qb,hd)
-    out = out.permute(0, 3, 4, 1, 2, 5).reshape(b, nq * q_block, h, hd)
-    return out[:, :s].to(q.dtype)
+    q: (B, S, H, hd); k, v: (B, T, KV, hd); H % KV == 0. Returns (B, S, H,
+    hd) in q's dtype. The blocks are capped at S and T; S and T are padded
+    to them here and the padded keys masked, as the reference does.
+    Differentiable in q, k and v, with no (S, T) tensor kept or made."""
+    q_block, k_block = min(q_block, q.shape[1]), min(k_block, k.shape[1])
+
+    def attend(q, k, v, g, h0):
+        return BlockedAttention.apply(q, k, v, causal, int(window), q_block,
+                                      k_block, q_offset, g, h0)
+    return on_head_shards(attend, q, k, v)[0]
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,

@@ -31,7 +31,7 @@ from repro_torch.kernels.ssm_scan import ops as SS
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import (apply_rope, init_linear, linear,
                                        log_sigmoid, softplus)
-from repro_torch.sharding.context import constrain_moe
+from repro_torch.sharding.context import constrain_moe, scatter_along
 from repro_torch.sharding.loops import scan
 
 
@@ -257,7 +257,10 @@ def _moe_buffers(p, x, topi, topw, e: int, cap: int):
     slot = flat_e * cap + torch.clamp(pos, max=cap - 1)
     tok = torch.arange(s, device=x.device).repeat_interleave(k)
     dest = torch.where(keep, slot, e * cap)[..., None].expand(b, s * k, d)
-    buf = x.new_zeros((b, e * cap + 1, d)).scatter(1, dest, x[:, tok])
+    # zeros placed as x (a DTensor's `new_zeros` is replicated: the whole
+    # global batch's buffer on every device)
+    buf = scatter_along(torch.zeros_like(x[:, :1]).expand(b, e * cap + 1, d),
+                        1, dest, x[:, tok])
     buf = constrain_moe(buf[:, :e * cap].reshape(b, e, cap, d))
     h = F.silu(torch.einsum("becd,edf->becf", buf, p["gate"].to(x.dtype))) * \
         torch.einsum("becd,edf->becf", buf, p["up"].to(x.dtype))

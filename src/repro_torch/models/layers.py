@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.common.pytree import normal_init
+from repro_torch.sharding.context import gather_last, logsumexp_last
 
 
 # ----------------------------------------------------------------------
@@ -81,8 +82,8 @@ def next_token_nll(logits, labels):
     tokens as fp32)."""
     valid = labels >= 0
     safe = torch.where(valid, labels, 0).long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    logz = logsumexp_last(logits)
+    gold = gather_last(logits, safe)
     ntok = valid.sum()
     loss = ((logz - gold) * valid).sum() / torch.clamp(ntok, min=1)
     return loss, ntok.to(torch.float32)

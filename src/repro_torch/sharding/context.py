@@ -12,6 +12,17 @@ In the port a plain tensor passes through unchanged. A
 `DeviceMesh` to the placements of the armed spec
 (`sharding.specs.to_placements`). The armed shardings live in context
 variables, so a thread or task sees only what it armed.
+
+`constrain_heads` places the attention's queries: their heads over `model`
+where the token activations are armed, as the reference's compile splits
+the attention's (KV, G) heads. Where the query's head view was refused
+(heads * head_dim split over `model` at a width that is no multiple of
+head_dim) it puts the heads on an uneven `Shard`: a local slice, no
+collective. `on_head_shards` then runs the blocked attention on each
+device's shards. Every (batch, head) pair is independent there, and
+DTensor would gather the flattened (batch, heads) dim of each block's
+matmul (a `_StridedShard` its `bmm` rule does not take), and refuses any op
+on a dim split into more shards than it has entries (12 heads over 16).
 """
 from __future__ import annotations
 
@@ -58,6 +69,139 @@ def constrain(x: torch.Tensor) -> torch.Tensor:
     if sharding is None or x.ndim != 3:
         return x
     return _redistribute(x, sharding)
+
+
+def constrain_heads(q: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, hd) queries with the heads split over `model` under the
+    ambient activation sharding (the batch as the tokens'), unevenly where
+    `model` does not divide H; the identity elsewhere."""
+    sharding = _ACT_SHARDING.get()
+    if sharding is None or q.ndim != 4:
+        return q
+    from torch.distributed.tensor import DTensor
+    if not isinstance(q, DTensor):
+        return q
+    mesh = q.device_mesh
+    names = mesh.mesh_dim_names
+    if "model" not in names:
+        return q
+    spec = (sharding.spec[0], None, "model", None)
+    want = to_placements(spec, names)
+    if list(q.placements) == want:
+        return q
+    return q.redistribute(mesh, want)
+
+
+def on_head_shards(attend, q, k, v):
+    """`attend(q, k, v, g, h0)` on each device's shards of (B, S, H, hd)
+    queries and (B, T, KV, hd) keys and values, where query head i of the
+    shard reads KV head (h0 + i) // g of the shard's keys (g = H / KV).
+    The outputs, shaped as q and q[..., 0], come back as DTensors placed as
+    q. Only under an armed activation sharding and with q a DTensor; else
+    `attend(q, k, v, H / KV, 0)` on the tensors as given.
+
+    q's heads go over `model` (`constrain_heads`); k and v take q's batch
+    split and keep a split of their heads over `model` that matches q's,
+    else are replicated there. Their gradients are then partial sums over
+    `model` (each device's query heads add theirs)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    g = q.shape[2] // k.shape[2]
+    if _ACT_SHARDING.get() is None or not isinstance(q, DTensor):
+        return attend(q, k, v, g, 0)
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset as local_shape
+    q = constrain_heads(q)
+    mesh = q.device_mesh
+    model = mesh.mesh_dim_names.index("model") \
+        if "model" in mesh.mesh_dim_names else -1
+    heads_split = model >= 0 and q.placements[model] == Shard(2)
+    kv_split = heads_split and k.shape[2] % mesh.size(model) == 0
+    pl = [Shard(0) if p == Shard(0) else
+          Shard(2) if i == model and kv_split else Replicate()
+          for i, p in enumerate(q.placements)]
+    grad_pl = [Partial() if i == model and heads_split and not kv_split
+               else p for i, p in enumerate(pl)]
+    k, v = (x.redistribute(mesh, pl) for x in (k, v))
+    hq0 = local_shape(q.shape, mesh, q.placements)[1][2]
+    hk0 = local_shape(k.shape, mesh, pl)[1][2]
+    outs = attend(q.to_local(grad_placements=q.placements),
+                  k.to_local(grad_placements=grad_pl),
+                  v.to_local(grad_placements=grad_pl), g, hq0 - hk0 * g)
+    return tuple(_from_local(x, mesh, q.placements, q.shape[:x.ndim])
+                 for x in outs)
+
+
+def _from_local(x, mesh, placements, shape):
+    """A contiguous DTensor of global `shape` from each device's shard."""
+    from torch.distributed.tensor import DTensor
+    stride = [1]
+    for n in reversed(shape[1:]):
+        stride.insert(0, stride[0] * n)
+    return DTensor.from_local(x, mesh, placements, run_check=False,
+                              shape=shape, stride=tuple(stride))
+
+
+def scatter_along(x: torch.Tensor, dim: int, index: torch.Tensor,
+                  src: torch.Tensor) -> torch.Tensor:
+    """`x.scatter(dim, index, src)`. Under an armed activation sharding, on
+    DTensors, it runs on each device's shards with index and src placed as
+    x (exact where x is not split along `dim`): torch 2.11's DTensor has
+    no scatter rule that keeps a split and gathers all three whole (the
+    MoE dispatch's int64 index, broadcast over d_model)."""
+    from torch.distributed.tensor import DTensor
+    if _ACT_SHARDING.get() is None or not all(
+            isinstance(t, DTensor) for t in (x, index, src)) or any(
+            p.is_shard(dim % x.ndim) for p in x.placements):
+        return x.scatter(dim, index, src)
+    mesh, pl = x.device_mesh, x.placements
+    index, src = (t.redistribute(mesh, pl) for t in (index, src))
+    out = x.to_local().scatter(dim, index.to_local(),
+                               src.to_local(grad_placements=pl))
+    return _from_local(out, mesh, pl, x.shape)
+
+
+def logsumexp_last(x: torch.Tensor) -> torch.Tensor:
+    """logsumexp over x's last dim (the loss's log-partition). Under an
+    armed activation sharding, on a DTensor, the max and the sum of
+    exponentials are reduced over the split dim (vocab-parallel):
+    DTensor's own logsumexp gathers the whole dim on every device."""
+    from torch.distributed.tensor import DTensor
+    if _ACT_SHARDING.get() is None or not isinstance(x, DTensor):
+        return torch.logsumexp(x, dim=-1)
+    m = x.detach().amax(dim=-1, keepdim=True)
+    return _summed(x, (x - m).exp().sum(dim=-1)).log() + m[..., 0]
+
+
+def gather_last(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[..., idx] along x's last dim (idx: x's shape without it; the
+    loss's gold logits). Under an armed activation sharding, on a
+    DTensor, a masked sum over the last dim, which keeps x's splits:
+    DTensor runs `torch.gather`'s backward as a zero tensor of x's global
+    shape replicated on every device (its `new_zeros`), the logits of a
+    whole global batch."""
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+    if _ACT_SHARDING.get() is None or not isinstance(x, DTensor):
+        return torch.gather(x, -1, idx[..., None])[..., 0]
+    # the vocab ids split as x's last dim, so the mask and its gradient
+    # keep x's split (replicated ids would make them whole on each device)
+    last = Shard(x.ndim - 1)
+    ids = distribute_tensor(
+        torch.arange(x.shape[-1], device=x.to_local().device),
+        x.device_mesh, [Shard(0) if p == last else Replicate()
+                        for p in x.placements])
+    return _summed(x, torch.where(ids == idx[..., None], x, 0.0).sum(dim=-1))
+
+
+def _summed(x, y):
+    """`y`, a sum over DTensor x's last dim, all-reduced over the mesh dims
+    that split it (left to DTensor, the partial sum is reduce-scattered
+    onto the batch dim, and its gradient then meets x's split there)."""
+    from torch.distributed.tensor import Replicate, Shard
+    last = Shard(x.ndim - 1)
+    return y.redistribute(y.device_mesh, [
+        Replicate() if p == last else q
+        for p, q in zip(x.placements, y.placements)])
 
 
 def constrain_moe(x: torch.Tensor) -> torch.Tensor:

@@ -7,9 +7,11 @@ seam between the models' loops and `launch.steps.Lowered.analyze`, as
 runs `carry, y_t = step(carry, xs, t)` for t in range(n) and returns the
 y_t stacked along dim 1 with the last carry: the Mamba scan's plain version
 (`kernels/ssm_scan/ref.py`), the mLSTM and the sLSTM recurrences
-(`models/blocks.py`). `step` slices step t of the whole sequences in `xs`
-itself. Unarmed (everywhere but the dry-run) `scan` is that loop and nothing
-else.
+(`models/blocks.py`), the blocked attention's query and KV block loops
+(`models/attention.py`). `step` slices step t of the whole sequences in `xs`
+itself. A step's y_t is a tensor, a tuple of tensors (each stacked) or None
+(a loop that only carries). Unarmed (everywhere but the dry-run) `scan` is
+that loop and nothing else.
 
 The dry-run arms a `LoopScaler` around a step (`scaled_loops`) with its
 counters: objects with `snapshot()` and `restore(snapshot)`, whose
@@ -36,18 +38,22 @@ of step 1 that its backward needs is rebuilt there uncounted (the eager
 loop keeps every step's graph), and so is the gradient its carry gets from
 the next step: the one step 1 gives its own input carry, placed as the
 loop's are. `LoopScaler.record()` names each scaled loop's site with its
-count of loops and its trip count.
+count of loops and its trip count. A scan inside an armed step (the
+attention's KV loop inside its query loop) is scaled inside the outer
+repeat, so its counts, and its count of loops, multiply.
 """
 from __future__ import annotations
 
 from collections import Counter
 from contextlib import contextmanager
 from contextvars import ContextVar
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
-Step = Callable[[Tuple, Tuple, int], Tuple[Tuple, torch.Tensor]]
+Ys = Union[torch.Tensor, Tuple[torch.Tensor, ...], None]
+
+Step = Callable[[Tuple, Tuple, int], Tuple[Tuple, Ys]]
 
 
 def _extrapolate(before, after, k: int):
@@ -77,9 +83,11 @@ class LoopScaler:
         """What the counters see inside counts 1 + k times (k = -1: not at
         all)."""
         before = [c.snapshot() for c in self.counters]
+        loops = Counter(self.loops)
         yield
         for c, b in zip(self.counters, before):
             c.restore(_extrapolate(b, c.snapshot(), k))
+        self.loops = _extrapolate(loops, self.loops, k)
 
     def record(self) -> Dict:
         """site -> {"loops", "trip_count"}; a site scaled at two trip
@@ -95,19 +103,37 @@ class LoopScaler:
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in carry + tuple(xs)):
             outs = _StandIn.apply(self, n - 2, step, len(carry), *carry, *xs)
-            carry, y1 = outs[:len(carry)], outs[-1]
+            carry, y1 = outs[:len(carry)], _unflat(outs[len(carry):], y0)
         else:
             with self.repeated(n - 2):
                 carry, y1 = step(carry, xs, 1)
-        rest = y1.unsqueeze(1).expand(
-            (y1.shape[0], n - 1) + tuple(y1.shape[1:]))
-        return torch.cat([y0.unsqueeze(1), rest], dim=1), carry
+
+        def cat(a, b):
+            rest = b.unsqueeze(1).expand(
+                (b.shape[0], n - 1) + tuple(b.shape[1:]))
+            return torch.cat([a.unsqueeze(1), rest], dim=1)
+        return _map(cat, y0, y1), carry
+
+
+def _flat(y: Ys) -> Tuple:
+    return () if y is None else tuple(y) if isinstance(y, tuple) else (y,)
+
+
+def _unflat(flat: Sequence, like: Ys) -> Ys:
+    """`flat` in the structure of `like` (a tensor, a tuple or None)."""
+    return (None if like is None else tuple(flat) if isinstance(like, tuple)
+            else flat[0])
+
+
+def _map(fn, *ys: Ys) -> Ys:
+    """`fn` over the tensors of step outputs of one structure."""
+    return _unflat([fn(*t) for t in zip(*map(_flat, ys))], ys[0])
 
 
 class _StandIn(torch.autograd.Function):
     """Step 1 of an armed scan, standing for steps 1 .. n - 1 (k = n - 2
     more): forward and backward counted 1 + k times. Outputs: the carry,
-    then the step's output (a clone of it where it is a carry tensor, the
+    then the step's outputs (a clone of one that is a carry tensor, the
     sLSTM's h)."""
 
     @staticmethod
@@ -117,7 +143,8 @@ class _StandIn(torch.autograd.Function):
         ctx.save_for_backward(*tensors)
         ctx.args = (scaler, k, step, n_carry)
         ctx.set_materialize_grads(False)
-        return (*carry, y.clone() if any(y is c for c in carry) else y)
+        return (*carry, *(t.clone() if any(t is c for c in carry) else t
+                          for t in _flat(y)))
 
     @staticmethod
     def backward(ctx, *grads):
@@ -132,7 +159,7 @@ class _StandIn(torch.autograd.Function):
                 ins = [x.detach().requires_grad_(w)
                        for x, w in zip(saved, need)]
                 carry, y = step(tuple(ins[:n_carry]), tuple(ins[n_carry:]), 1)
-                outs = (*carry, y)
+                outs = (*carry, *_flat(y))
                 # a step's carry has the next step's gradient: the one
                 # this step gives its own carry, placed as the loop's are
                 missing = [i for i in range(n_carry) if grads[i] is None]
@@ -185,4 +212,4 @@ def scan(site: str, step: Step, carry: Tuple, xs: Tuple, n: int):
     for t in range(n):
         carry, y = step(carry, xs, t)
         ys.append(y)
-    return torch.stack(ys, dim=1), carry
+    return _map(lambda *y: torch.stack(y, dim=1), *ys), carry

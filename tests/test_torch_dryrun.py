@@ -10,17 +10,24 @@ compile.
   `repro.launch.mesh` by name), within 1e-12 relative.
 * The collective counter on known redistributions of a 4-rank fake world,
   and `roofline_terms` at one second of each term.
-* The level of the FLOP count: per device. A matmul split over both axes
-  of a (2, 2) mesh counts a quarter of its global FLOPs; a reduced dense
-  LM whose dims all divide the mesh counts, times the 4 ranks, its plain
-  meta trace's global FLOPs within 1 %, with no reshard. `FlopCounterMode`
+* The level of the FLOP count and of the memory peak: per device. A
+  matmul split over both axes of a (2, 2) mesh counts a quarter of its
+  global FLOPs; a reduced dense LM whose dims all divide the mesh counts,
+  times the 4 ranks, its plain meta trace's global FLOPs within 1 %, with
+  no reshard; `LocalMemTracker` tracks a product's local shard, not the
+  global shape DTensor's propagation runs. `FlopCounterMode`
   itself counts the global shapes too on an op signature DTensor has not
   propagated before (pinned here: why the port counts with a mode of its
   own).
 * The reshard policy: a view DTensor refuses (KV heads that do not divide
   `model`) is retried with `model` replicated and keeps the batch's `data`
   shard; an op with no sharding rule runs locally on replicated operands.
-* The CLI in a subprocess on the 512-rank mesh.
+* The attention split over `model`: a reduced GQA LM (8 heads over 2 KV
+  heads) on a (2, 4) mesh, train and prefill, counts a device's attention
+  FLOPs as an eighth of its plain global trace's, within 1 %, and reshards
+  at most K's and V's head views, two a layer and forward pass.
+* The CLI in a subprocess on the 512-rank mesh; both CLIs on tinyllama-1.1b
+  prefill_32k: the port's peak within 16x the reference's compiled peak.
 * The KV write past a cache's end: the reference clamps it into the last
   slot, the port raises.
 
@@ -233,6 +240,23 @@ def test_hlo_flops_are_per_device(fake_world):
     assert rec["peak_device_bytes"] == 4 * (32 * 96 + 96 * 64 + 32 * 64)
 
 
+def test_local_mem_tracker_counts_the_local_shards(fake_world):
+    """A product of a (64, 96) DTensor split over both axes of (2, 2):
+    `LocalMemTracker` counts its (32, 48) local output, not the global
+    shape DTensor's sharding propagation runs (tracked by torch 2.11's own
+    MemTracker)."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+    mesh = fake_world((2, 2), ("data", "model"))
+    x = distribute_tensor(torch.empty(64, 96, device="meta"), mesh,
+                          [Shard(0), Shard(1)])
+    mem = HA.LocalMemTracker()
+    with mem:
+        y = x * 2.0 + 1.0
+    assert tuple(y.to_local().shape) == (32, 48)
+    peak = sum(d["Total"] for d in mem.get_tracker_snapshot("peak").values())
+    assert peak == 2 * 32 * 48 * 4
+
+
 def test_flop_counter_mode_counts_global_on_a_fresh_signature(fake_world):
     """Why `LocalCounter` exists: under `CommDebugMode`, FlopCounterMode
     counts a DTensor matmul's local FLOPs plus, the first time DTensor
@@ -308,6 +332,32 @@ def test_reshard_keeps_the_batch_shard(fake_world):
     assert rec["reshards"] == {"aten.view.default": 3 * cfg.num_layers}
 
 
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_attention_splits_over_model(fake_world, kind):
+    """tinyllama reduced to 8 query heads over 2 KV heads, S = 1024 (two
+    query blocks), on (2, 4): a device runs its batch half and its 2 heads
+    of every attention block, an eighth of the plain global trace's
+    attention FLOPs (`aten.bmm`); K's and V's head views (2 KV heads over
+    4) are the only reshards, two a layer and forward pass (the train
+    step's remat runs each layer's forward twice)."""
+    mesh = fake_world((2, 4), ("data", "model"))
+    cfg = _reduced("tinyllama-1.1b", num_heads=8, num_kv_heads=2,
+                   head_dim=32)
+    shape = TSH.ShapeSpec("s", kind, 1024, 4)
+    rec = HA.analyze(TST.lower_case(
+        TST.build_case(cfg, shape, mesh, impl="ref"), mesh))
+    local = HA.LocalCounter()
+    case = TST.build_case(cfg, shape, mesh, impl="ref")
+    with local:
+        case.fn(*case.arg_structs)
+    assert rec["flops_by_op"]["aten.bmm"] * 8 == pytest.approx(
+        local.flops["aten.bmm"], rel=0.01)
+    passes = 2 if kind == "train" else 1
+    assert set(rec["reshards"]) <= {"aten.view.default"}, rec["reshards"]
+    assert sum(rec["reshards"].values()) <= 2 * passes * cfg.num_layers
+    assert rec["shards_dropped"] == {}
+
+
 def test_reshard_policy_local_rule_and_plain_tensors(fake_world):
     from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                           distribute_tensor)
@@ -373,6 +423,27 @@ def test_dryrun_cli_one_case(tmp_path):
     for key in ("reshards", "useful_flop_ratio", "trace_s", "a_compute_s",
                 "a_fits_hbm", "collectives", "peak_device_bytes"):
         assert key in rec, key
+
+
+def test_prefill_peak_within_16x_the_reference(tmp_path):
+    """tinyllama-1.1b prefill_32k on the 256-rank mesh through both CLIs:
+    the port's `peak_device_bytes` (its argument shards plus MemTracker's
+    peak) at most 16x the reference's compiled peak (XLA's memory stats)."""
+    peaks = {}
+    for pkg in ("repro", "repro_torch"):
+        out = subprocess.run(
+            [sys.executable, "-m", f"{pkg}.launch.dryrun", "--arch",
+             "tinyllama-1.1b", "--shape", "prefill_32k", "--mesh", "single",
+             "--out", str(tmp_path / pkg)],
+            capture_output=True, text=True, cwd=ROOT, timeout=600,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                     JAX_PLATFORMS="cpu"))
+        assert "1 ok, 0 skipped, 0 errors / 1 cases" in out.stdout, \
+            out.stdout[-2000:] + out.stderr[-2000:]
+        rec = json.loads((tmp_path / pkg / "tinyllama-1.1b__prefill_32k__"
+                          "single.json").read_text())
+        peaks[pkg] = rec["peak_device_bytes"]
+    assert 0 < peaks["repro_torch"] <= 16 * peaks["repro"], peaks
 
 
 # ------------------------------------------------------------ KV overrun

@@ -165,18 +165,22 @@ def test_prefill_decode_match_reference():
 
 
 def test_prefill_launches_flash_per_attention(monkeypatch):
-    """`impl="auto"` sends each encoder layer, each decoder self-attention
-    and each cross-attention of the prefill to the flash wrapper (on the
-    card: one launch each, 12 + 12 + 12 at full width); `impl="ref"` none;
-    both give the same logits."""
+    """Each encoder layer, each decoder self-attention and each
+    cross-attention of the prefill is one call of `ops.attention` (on the
+    card under `impl="auto"`: one flash launch each, 12 + 12 + 12 at full
+    width). On CPU tensors both impls take the plain blocked attention and
+    never the kernel wrapper; both give the same logits."""
     _, tc, _, tp = _whisper()
-    calls = []
-    fa = TFA.flash_attention
+    calls, kernel = [], []
+    fa, blocked = TFA.flash_attention, TFA.blocked_attention
 
-    def counted(*args, **kw):
-        calls.append(kw.get("causal"))
-        return fa(*args, **kw)
-    monkeypatch.setattr(TFA, "flash_attention", counted)
+    def counted(log, fn):
+        def wrapped(*args, **kw):
+            log.append(kw.get("causal"))
+            return fn(*args, **kw)
+        return wrapped
+    monkeypatch.setattr(TFA, "flash_attention", counted(kernel, fa))
+    monkeypatch.setattr(TFA, "blocked_attention", counted(calls, blocked))
     model = TZOO.build_model(tc)
     batch = {"frames": torch.from_numpy(_frames(tc, 1, 6)),
              "tokens": torch.arange(1, 8)[None]}
@@ -186,8 +190,9 @@ def test_prefill_launches_flash_per_attention(monkeypatch):
         cache = model.make_cache(1, 12, torch.float32, device="cpu")
         out[impl], _ = model.prefill(params=tp, batch=batch, cache=cache,
                                      compute_dtype=torch.float32, impl=impl)
-        n = tc.encoder_layers + 2 * tc.num_layers if impl == "auto" else 0
+        n = tc.encoder_layers + 2 * tc.num_layers
         assert len(calls) == n, (impl, calls)
+    assert kernel == []
     torch.testing.assert_close(out["auto"], out["ref"], rtol=0, atol=0)
 
 

@@ -282,13 +282,15 @@ def test_lm_prefill_decode_logits_match_reference(kind):
 
 
 def test_prefill_dispatches_impl_to_both_kernels(monkeypatch):
-    """`impl="auto"` sends every attention layer to the flash attention
-    wrapper and every Mamba layer to the scan wrapper (on the card: one
-    launch each), with A and the state in fp32 also under bf16 compute;
-    `impl="ref"` sends none, and both give the same logits."""
+    """`impl="auto"` sends every Mamba layer to the scan wrapper (on the
+    card: one launch each), with A and the state in fp32 also under bf16
+    compute, and `impl="ref"` none. Every attention layer is one call of
+    the plain blocked attention under both impls on CPU tensors (on the
+    card `impl="auto"` launches the flash kernel there), never of the
+    kernel wrapper. Both give the same logits."""
     tc = _cut_cfg(TCFG)
-    calls = {"attn": 0, "scan": 0}
-    fa, ss = TFA.flash_attention, TSS.ssm_scan
+    calls = {"attn": 0, "scan": 0, "flash_kernel": 0}
+    fa, ss, blocked = TFA.flash_attention, TSS.ssm_scan, TFA.blocked_attention
 
     def count(key, fn):
         def wrapped(*args, **kw):
@@ -297,7 +299,8 @@ def test_prefill_dispatches_impl_to_both_kernels(monkeypatch):
                 assert args[1].dtype == args[5].dtype == torch.float32
             return fn(*args, **kw)
         return wrapped
-    monkeypatch.setattr(TFA, "flash_attention", count("attn", fa))
+    monkeypatch.setattr(TFA, "flash_attention", count("flash_kernel", fa))
+    monkeypatch.setattr(TFA, "blocked_attention", count("attn", blocked))
     monkeypatch.setattr(TSS, "ssm_scan", count("scan", ss))
     model = TZOO.build_model(tc)
     params = model.init(torch.Generator().manual_seed(2), device="cpu")
@@ -308,8 +311,8 @@ def test_prefill_dispatches_impl_to_both_kernels(monkeypatch):
             cache = model.make_cache(1, 16, dtype, device="cpu")
             out[impl], _ = model.prefill(params, tok, cache, dtype,
                                          impl=impl)
-            want = {"attn": 1, "scan": 7} if impl == "auto" else \
-                {"attn": 0, "scan": 0}
+            want = {"attn": 1, "scan": 7 if impl == "auto" else 0,
+                    "flash_kernel": 0}
             assert calls == want, (impl, calls)
             calls.update(attn=0, scan=0)
         assert out["auto"].dtype == dtype

@@ -3874,19 +3874,26 @@ def phase_launch(dev, card, actor):
 
 # (arch, shape, mesh, devices, {scaled loop's site: trip count}, whether
 # its peak must fit the card's 80 GiB)
+# (arch, shape, mesh, devices, loops_scaled's trip counts, peak must fit
+# the card, what the record must read beside: the traced bottleneck and a
+# cap on its collective bytes)
 DRYRUN_CASES = (
-    ("xlstm-125m", "decode_32k", "multi", 512, {}, False),
+    ("xlstm-125m", "decode_32k", "multi", 512, {}, False, {}),
     ("tinyllama-1.1b", "train_4k", "single", 256,
      {"models/attention.py:_fwd": 8, "models/attention.py:_fwd_q_block": 4,
       "models/attention.py:_bwd": 4, "models/attention.py:_bwd_kv_block": 8},
-     True),
+     True, {}),
     ("xlstm-125m", "train_4k", "single", 256,
      {"models/blocks.py:_mlstm_scan": 4096,
-      "models/blocks.py:_slstm_apply": 4096}, False),
+      "models/blocks.py:_slstm_apply": 4096}, False, {}),
     ("jamba-v0.1-52b", "prefill_32k", "single", 256,
      {"kernels/ssm_scan/ref.py:ssm_scan_ref": 32768,
       "models/attention.py:_fwd": 64, "models/attention.py:_fwd_q_block": 32},
-     True))
+     True, {}),
+    # decode on the cache's T shards: the cache write and the attention
+    # gather no cache (6.96e10 bytes a device when they did, ~9e8 after)
+    ("olmoe-1b-7b", "decode_32k", "single", 256, {}, True,
+     {"bottleneck": "memory", "collective_bytes": 2e9}))
 CARD_BYTES = 80 * 2 ** 30
 
 
@@ -3902,9 +3909,12 @@ def phase_dryrun(dev, card, row23b, cases=DRYRUN_CASES, timeout=600):
     the mLSTM and sLSTM loops forward and backward, the Mamba scan's plain
     version over 32k tokens, and the plain blocked attention's query and
     KV block loops (tinyllama-1.1b's train step and Jamba's prefill). Each
-    row has `peak_device_bytes`; those two cases' must fit the card's 80
-    GiB. That proves this torch has the fake group, the counting modes
-    and the scaled loops. (b) The analytic
+    row has `peak_device_bytes`; those two cases' and olmoe-1b-7b decode's
+    must fit the card's 80 GiB. olmoe's decode step runs on the KV cache's
+    T shards (`sharding.context.write_slot`, `on_seq_shards`): its traced
+    bottleneck must be memory and its collectives under 2e9 bytes a
+    device. That proves this torch has the fake group, the counting modes,
+    the scaled loops and the split softmax's all-reduces. (b) The analytic
     roofline (`launch.roofline.analytic_terms` at n_dev = 1, dp = 1, the
     H100 constants) of phase 23b's three tinyllama-1.1b shapes beside the
     times 23b measured: a train step at 4 x 2048, a prefill at 1 x 2048,
@@ -3925,7 +3935,7 @@ def phase_dryrun(dev, card, row23b, cases=DRYRUN_CASES, timeout=600):
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True)) for case in cases]
     rows = []
-    for (arch, shape, mesh, n_dev, loops, fits), proc in procs:
+    for (arch, shape, mesh, n_dev, loops, fits, want), proc in procs:
         try:
             stdout, stderr = proc.communicate(timeout=timeout)
         finally:
@@ -3942,6 +3952,11 @@ def phase_dryrun(dev, card, row23b, cases=DRYRUN_CASES, timeout=600):
                 rec["loops_scaled"].items()} == loops, rec["loops_scaled"]
         assert not fits or rec["peak_device_bytes"] <= CARD_BYTES, \
             (arch, shape, rec["peak_device_bytes"])
+        assert rec["bottleneck"] == want.get("bottleneck",
+                                             rec["bottleneck"]) and \
+            rec["collective_bytes"] <= want.get("collective_bytes",
+                                                float("inf")), \
+            (arch, shape, rec["bottleneck"], rec["collective_bytes"], want)
         rows.append({k: rec[k] for k in (
             "arch", "shape", "mesh", "devices", "trace_s", "hlo_flops",
             "hlo_bytes", "collective_bytes", "bottleneck",

@@ -13,7 +13,10 @@ reference; GQA query head h reads KV head h // (H / KV).
   hand-written kernels instead.
 * :func:`decode_attention` — one query token against a (possibly rolling)
   KV cache. The reference computes it outside any Pallas kernel, and so
-  does the port.
+  does the port. On DTensor caches split on T under an activation
+  sharding it runs on each device's T slice (`decode_partial`) and
+  combines the slices' softmax by all-reduces (`merge_partials`,
+  `sharding.context.on_seq_shards`), as the reference's compile does.
 * :func:`simple_attention` — naive O(S^2) oracle, used only to check.
 
 The block loops run through `sharding.loops.scan`, so the dry-run counts
@@ -32,7 +35,8 @@ import math
 
 import torch
 
-from repro_torch.sharding.context import on_head_shards
+from repro_torch.sharding.context import (on_head_shards, on_seq_shards,
+                                          seq_sharded)
 from repro_torch.sharding.loops import scan
 
 NEG_INF = -1e30
@@ -267,25 +271,21 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     return on_head_shards(attend, q, k, v)[0]
 
 
-def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
-                     ring: bool = False):
-    """Single-step decode attention against a KV cache.
-
-    q: (B, 1, H, hd); k_cache/v_cache: (B, T, KV, hd); cache_len: an int or
-    a (B,) tensor, the number of valid cache entries (the current token's
-    KV, already written, included). With ``ring`` the cache is a rolling
-    buffer of size ``window`` (positions wrap) and validity is
-    min(cache_len, window)."""
-    b, _, h, hd = q.shape
-    t, kv = k_cache.shape[1], k_cache.shape[2]
-    qg = _gqa_split(q, kv)[:, 0]                              # (B, KV, G, hd)
+def _decode_scores(q, k):
+    """(B, 1, H, hd) queries against (B, T, KV, hd) keys: the (B, KV, G, T)
+    fp32 scores over sqrt(hd)."""
+    qg = _gqa_split(q, k.shape[2])[:, 0]                      # (B, KV, G, hd)
     # a cache in another dtype than q: the scores in the promoted dtype, as
     # jnp.einsum computes them
-    dt = torch.promote_types(q.dtype, k_cache.dtype)
+    dt = torch.promote_types(q.dtype, k.dtype)
     sc = torch.einsum("bkgh,btkh->bkgt", qg.to(dt),
-                      k_cache.to(dt)).to(torch.float32)
-    sc = sc / math.sqrt(hd)
-    pos = torch.arange(t, device=q.device)
+                      k.to(dt)).to(torch.float32)
+    return sc / math.sqrt(q.shape[-1])
+
+
+def _decode_valid(pos, t: int, cache_len, window: int, ring: bool):
+    """Which cache slots at global positions `pos` a decode reads, in a
+    cache of t slots: (B or 1, len(pos))."""
     if isinstance(cache_len, torch.Tensor):
         clen = cache_len.reshape(-1, 1)                        # (B or 1, 1)
         hi = torch.clamp(clen, max=t) if ring else clen
@@ -295,6 +295,35 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
     valid = pos[None, :] < hi
     if window and not ring:
         valid = valid & (pos[None, :] >= clen - window)
+    return valid
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
+                     ring: bool = False):
+    """Single-step decode attention against a KV cache.
+
+    q: (B, 1, H, hd); k_cache/v_cache: (B, T, KV, hd); cache_len: an int or
+    a (B,) tensor, the number of valid cache entries (the current token's
+    KV, already written, included). With ``ring`` the cache is a rolling
+    buffer of size ``window`` (positions wrap) and validity is
+    min(cache_len, window).
+
+    Where the caches are DTensors split on T under an armed activation
+    sharding (`sharding.context.seq_sharded`; cache_len an int), each
+    device runs the softmax on its T slice (`decode_partial`) and the
+    slices are combined by all-reduces (`merge_partials`), as the
+    reference's compile splits it; not bit-equal to the one-slice path."""
+    b, _, h, hd = q.shape
+    t = k_cache.shape[1]
+    if seq_sharded(k_cache):
+        def on_slice(q, k, v, t0, reduce):
+            return merge_partials(*decode_partial(
+                q, k, v, cache_len, t0, t, window=window, ring=ring), reduce)
+        out = on_seq_shards(on_slice, q, k_cache, v_cache)
+        return out.to(v_cache.dtype).reshape(b, 1, h, hd).to(q.dtype)
+    sc = _decode_scores(q, k_cache)
+    valid = _decode_valid(torch.arange(t, device=q.device), t, cache_len,
+                          window, ring)
     sc = torch.where(valid[:, None, None, :], sc, NEG_INF)
     m = sc.amax(dim=-1, keepdim=True)
     p = torch.exp(sc - m)
@@ -303,3 +332,32 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
                        (p / torch.clamp(l, min=1e-30)).to(v_cache.dtype),
                        v_cache)
     return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def decode_partial(q, k, v, cache_len, t0: int, t: int, *, window: int = 0,
+                   ring: bool = False):
+    """The split softmax's part of one slice of a t-slot cache: k, v
+    (B, n, KV, hd) hold its entries at global positions [t0, t0 + n); the
+    rest as `decode_attention`'s. Returns the slice's max m and sum l,
+    (B, KV, G, 1), and the unnormalised o = p @ v, (B, KV, G, hd), all fp32
+    (p cast to v's dtype for the product, as the one-slice path casts its
+    weights). A slice with no valid slot has m = NEG_INF: its weight in
+    `merge_partials` is exactly 0 beside any slice that has one."""
+    sc = _decode_scores(q, k)
+    valid = _decode_valid(torch.arange(t0, t0 + k.shape[1], device=q.device),
+                          t, cache_len, window, ring)
+    sc = torch.where(valid[:, None, None, :], sc, NEG_INF)
+    m = sc.amax(dim=-1, keepdim=True)
+    p = torch.exp(sc - m)
+    o = torch.einsum("bkgt,btkh->bkgh", p.to(v.dtype), v)
+    return m, p.sum(dim=-1, keepdim=True), o.to(torch.float32)
+
+
+def merge_partials(m, l, o, reduce):
+    """Combine the slices' `decode_partial` (m, l, o) into the normalised
+    fp32 output (B, KV, G, hd): `reduce(x, op)` takes x over the slices
+    with op "max" or "sum" (all-reduces over the cache's T split)."""
+    mg = reduce(m, "max")
+    w = torch.exp(m - mg)
+    return reduce(o * w, "sum") / torch.clamp(reduce(l * w, "sum"),
+                                              min=1e-30)

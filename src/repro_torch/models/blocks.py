@@ -31,7 +31,8 @@ from repro_torch.kernels.ssm_scan import ops as SS
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import (apply_rope, init_linear, linear,
                                        log_sigmoid, softplus)
-from repro_torch.sharding.context import constrain_moe, scatter_along
+from repro_torch.sharding.context import (constrain_moe, scatter_along,
+                                          write_slot)
 from repro_torch.sharding.loops import scan
 
 
@@ -124,8 +125,8 @@ def attn_decode(p, cfg: ArchConfig, x, cache: Dict, pos: int, *,
     positions = torch.full((b, 1), pos, device=x.device)
     q, k, v = _qkv(p, cfg, x, positions)
     widx = pos % t if ring else pos
-    cache["k"][:, widx] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, widx] = v[:, 0].to(cache["v"].dtype)
+    write_slot(cache["k"], widx, k[:, 0])
+    write_slot(cache["v"], widx, v[:, 0])
     o = attn_lib.decode_attention(q, cache["k"], cache["v"], pos + 1,
                                   window=window, ring=ring)
     return linear(p["wo"], o.reshape(b, 1, -1)), cache

@@ -23,6 +23,13 @@ device's shards. Every (batch, head) pair is independent there, and
 DTensor would gather the flattened (batch, heads) dim of each block's
 matmul (a `_StridedShard` its `bmm` rule does not take), and refuses any op
 on a dim split into more shards than it has entries (12 heads over 16).
+
+A decode step's KV cache is split on T (`launch.steps.build_case`), and
+DTensor gathers a device's whole cache for a write at one T index and for
+an einsum whose other operand keeps a head split. `write_slot` writes the
+new token into each device's own T shard (GSPMD's masked
+dynamic-update-slice) and `on_seq_shards` runs decode attention on each
+device's T slice, its softmax combined by all-reduces.
 """
 from __future__ import annotations
 
@@ -108,8 +115,6 @@ def on_head_shards(attend, q, k, v):
     g = q.shape[2] // k.shape[2]
     if _ACT_SHARDING.get() is None or not isinstance(q, DTensor):
         return attend(q, k, v, g, 0)
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset as local_shape
     q = constrain_heads(q)
     mesh = q.device_mesh
     model = mesh.mesh_dim_names.index("model") \
@@ -122,13 +127,89 @@ def on_head_shards(attend, q, k, v):
     grad_pl = [Partial() if i == model and heads_split and not kv_split
                else p for i, p in enumerate(pl)]
     k, v = (x.redistribute(mesh, pl) for x in (k, v))
-    hq0 = local_shape(q.shape, mesh, q.placements)[1][2]
-    hk0 = local_shape(k.shape, mesh, pl)[1][2]
+    hq0, hk0 = _shard_start(q, 2), _shard_start(k, 2)
     outs = attend(q.to_local(grad_placements=q.placements),
                   k.to_local(grad_placements=grad_pl),
                   v.to_local(grad_placements=grad_pl), g, hq0 - hk0 * g)
     return tuple(_from_local(x, mesh, q.placements, q.shape[:x.ndim])
                  for x in outs)
+
+
+def _shard_start(x, dim: int) -> int:
+    """The global index of DTensor x's first entry along `dim` in this
+    device's shard."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset as local_shape
+    return local_shape(x.shape, x.device_mesh, x.placements)[1][dim]
+
+
+def seq_sharded(x) -> bool:
+    """Whether decode runs on the T shards of (B, T, ...) cache x: under an
+    armed activation sharding, with x a DTensor split on dim 1."""
+    if _ACT_SHARDING.get() is None:
+        return False
+    from torch.distributed.tensor import DTensor, Shard
+    return isinstance(x, DTensor) and Shard(1) in x.placements
+
+
+def _batch_only(placements):
+    """A cache's placements with its batch split kept and every other mesh
+    dim replicated (the T split's dims among them)."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [Shard(0) if p == Shard(0) else Replicate() for p in placements]
+
+
+def write_local_slot(local: torch.Tensor, index: int, new: torch.Tensor,
+                     start: int) -> None:
+    """The part of `cache[:, index] = new` that falls in `local`, the
+    cache's entries [start, start + local.shape[1]) along dim 1: GSPMD's
+    masked dynamic-update-slice. The slot index is clamped into the slice
+    and the write masked by whether `index` lies in it, so every slice runs
+    the same fixed-shape ops."""
+    n = local.shape[1]
+    inside = torch.tensor(start <= index < start + n, device=local.device)
+    slot = local[:, min(max(index - start, 0), n - 1)]
+    slot.copy_(torch.where(inside, new.to(local.dtype), slot))
+
+
+def write_slot(cache: torch.Tensor, index: int, new: torch.Tensor) -> None:
+    """`cache[:, index] = new` in place (cache (B, T, ...), new (B, ...)).
+    Where decode runs on the cache's T shards (`seq_sharded`) each device
+    writes into its own shard (`write_local_slot`), new placed with the
+    cache's batch split: DTensor has no local rule for a write at one T
+    index and gathers the cache's T. Elsewhere the indexed assignment."""
+    if not seq_sharded(cache):
+        cache[:, index] = new.to(cache.dtype)
+        return
+    new = new.redistribute(cache.device_mesh, _batch_only(cache.placements))
+    write_local_slot(cache.to_local(), index, new.to_local(),
+                     _shard_start(cache, 1))
+
+
+def on_seq_shards(decode, q, k, v):
+    """`decode(q, k, v, t0, reduce)` on each device's T slice of
+    (B, T, KV, hd) DTensor caches k and v (`seq_sharded`), which holds the
+    cache's entries from global position t0; q (B, 1, H, hd) comes
+    replicated over the mesh dims that split T and split as the cache's
+    batch. `reduce(x, op)` all-reduces an fp32 tensor of a device's
+    batch rows over the T split's mesh dims, op "max" or "sum", as
+    DTensor `Partial` placements redistributed (so the dry-run's counter
+    sees all-reduces). decode's (B, ...) output comes back as a DTensor
+    placed as the query here."""
+    from torch.distributed.tensor import Partial, Shard
+    mesh = k.device_mesh
+    pl = _batch_only(k.placements)
+    batch = q.shape[0]
+    q, v = q.redistribute(mesh, pl), v.redistribute(mesh, k.placements)
+
+    def reduce(x, op):
+        part = [Partial(op) if p == Shard(1) else r
+                for p, r in zip(k.placements, pl)]
+        return _from_local(x, mesh, part, (batch,) + x.shape[1:]) \
+            .redistribute(mesh, pl).to_local()
+    out = decode(q.to_local(), k.to_local(), v.to_local(),
+                 _shard_start(k, 1), reduce)
+    return _from_local(out, mesh, pl, (batch,) + out.shape[1:])
 
 
 def _from_local(x, mesh, placements, shape):

@@ -3891,9 +3891,15 @@ DRYRUN_CASES = (
       "models/attention.py:_fwd": 64, "models/attention.py:_fwd_q_block": 32},
      True, {}),
     # decode on the cache's T shards: the cache write and the attention
-    # gather no cache (6.96e10 bytes a device when they did, ~9e8 after)
+    # gather no cache (6.96e10 bytes a device when they did, ~9e8 after);
+    # the weights, the experts and the embedding table stay on their
+    # shards (weight-stationary products, the masked lookup: the expert
+    # gathers alone were ~8e8 under torch 2.11)
     ("olmoe-1b-7b", "decode_32k", "single", 256, {}, True,
-     {"bottleneck": "memory", "collective_bytes": 2e9}))
+     {"bottleneck": "memory", "collective_bytes": 6e8}),
+    # the masked lookup: gathering the table alone moved 8.19e6
+    ("tinyllama-1.1b", "long_500k", "single", 256, {}, True,
+     {"bottleneck": "memory", "collective_bytes": 4e6}))
 CARD_BYTES = 80 * 2 ** 30
 
 
@@ -3911,14 +3917,19 @@ def phase_dryrun(dev, card, row23b, cases=DRYRUN_CASES, timeout=600):
     KV block loops (tinyllama-1.1b's train step and Jamba's prefill). Each
     row has `peak_device_bytes`; those two cases' and olmoe-1b-7b decode's
     must fit the card's 80 GiB. olmoe's decode step runs on the KV cache's
-    T shards (`sharding.context.write_slot`, `on_seq_shards`): its traced
-    bottleneck must be memory and its collectives under 2e9 bytes a
-    device. That proves this torch has the fake group, the counting modes,
-    the scaled loops and the split softmax's all-reduces. (b) The analytic
-    roofline (`launch.roofline.analytic_terms` at n_dev = 1, dp = 1, the
-    H100 constants) of phase 23b's three tinyllama-1.1b shapes beside the
-    times 23b measured: a train step at 4 x 2048, a prefill at 1 x 2048,
-    one decode step at 2048. The bound is the larger of the compute and
+    T shards (`sharding.context.write_slot`, `on_seq_shards`) and keeps its
+    weights and experts on their shards (`launch.reshard.matmul_partition`'s
+    weight-stationary products): its traced bottleneck must be memory and
+    its collectives under 6e8 bytes a device. tinyllama-1.1b's long_500k
+    step looks its token up on each device's rows of the table
+    (`sharding.context.lookup_rows`): memory, and under 4e6 bytes, below
+    the table gather's 8.19e6 alone. That proves this torch has the fake
+    group, the counting modes, the scaled loops, the split softmax's
+    all-reduces, the byte-costed partition and the masked lookup. (b) The
+    analytic roofline (`launch.roofline.analytic_terms` at n_dev = 1, dp =
+    1, the H100 constants) of phase 23b's three tinyllama-1.1b shapes
+    beside the times 23b measured: a train step at 4 x 2048, a prefill at
+    1 x 2048, one decode step at 2048. The bound is the larger of the compute and
     memory terms (one device moves no collective); a measured time below
     its bound fails the phase: the constants or the count would be
     wrong."""

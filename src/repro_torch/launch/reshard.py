@@ -13,14 +13,24 @@ counts what it does:
 
 * **Matmuls keep the left operand's free-dim shards** (the tokens of
   every `x @ w`, the port's only matmul layout). Where the right operand
-  is split or a partial sum over the same mesh dim, it is gathered or
-  reduced over that dim first: GSPMD's FSDP choice under the reference's
-  activation constraints (`policy.matmul_right_replicated`, op -> count).
-  A left operand that is a partial sum over a mesh dim the right one is
-  split over is reduced first, so the product stays split
-  (`policy.matmul_left_reduced`); DTensor would gather the right one and
-  multiply it whole. Both are the ideal partition's collectives, not
-  departures from it.
+  is split or a partial sum over a mesh dim the left one's free dim is
+  split over, the policy prices two partitions by the bytes a device
+  sends (`matmul_partition`) and takes the cheaper, as GSPMD does:
+  (a) the right operand gathered or reduced over that dim first, FSDP's
+  weight gather (`policy.matmul_right_replicated`, op -> count); or (b)
+  weight-stationary: the right operand keeps its split, the left one's
+  free dim is gathered over that dim (its contraction dim cut locally
+  where the right one is split there), and the product is
+  reduce-scattered, or moved by an all-to-all, back onto the left one's
+  free-dim split (`policy.matmul_weight_stationary`). (a) is the cheaper
+  where a device holds many tokens (train and prefill: 65,536 tokens a
+  device against a weight shard tens to hundreds of times smaller), (b)
+  at decode (8 tokens a device). Both do the same FLOPs a device and
+  leave the product placed alike. A left operand that is a partial sum
+  over a mesh dim the right one is split over is reduced first, so the
+  product stays split (`policy.matmul_left_reduced`); DTensor would
+  gather the right one and multiply it whole. All three are the ideal
+  partition's collectives, not departures from it.
 * **A masked partial** (DTensor's vocab-parallel gather of the loss) is
   reduced as soon as an op returns it: `policy.masked_partials_reduced`.
 * **Plain tensors meeting DTensors** (positions, rope tables, masks, the
@@ -63,13 +73,14 @@ from __future__ import annotations
 
 import contextlib
 import itertools
+import math
 import time
 import traceback
 from collections import Counter
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
@@ -83,6 +94,114 @@ _MATMULS = {
     aten.bmm.default: (0, (0, 1), 1, (0,)),
     aten.baddbmm.default: (1, (0, 1), 2, (0,)),
 }
+
+
+# the matmuls that may run weight-stationary (no bias to add to a partial
+# product)
+_STATIONARY = (aten.mm.default, aten.bmm.default)
+
+
+def _local_bytes(shape, placements, sizes, itemsize) -> float:
+    """A shard's bytes of a tensor of global `shape`, split as `placements`
+    over a mesh of `sizes` (evenly: a price, not an allocation)."""
+    n = math.prod(shape) * itemsize
+    for p, k in zip(placements, sizes):
+        if p.is_shard():
+            n /= k
+    return n
+
+
+class Partition(NamedTuple):
+    """`matmul_partition`'s choice: mesh dims where the right operand is
+    gathered or reduced first (a), where the product is weight-stationary
+    (b), where the left operand is reduced first; and the left operand's
+    placements for (b) (None without it)."""
+    gather: List[int]
+    stationary: List[int]
+    reduce: List[int]
+    left: Optional[List]
+
+
+def matmul_partition(func, left_shape, left_pl, right_shape, right_pl,
+                     sizes, left_itemsize: int, right_itemsize: int,
+                     batch_dims: Sequence[int], held=()) -> Partition:
+    """How `ReshardPolicy` partitions matmul `func` (a key of `_MATMULS`)
+    on operands of these global shapes and placements over a mesh of
+    `sizes` whose dims `batch_dims` split the batch, from nothing but
+    those. Where a mesh dim splits the left operand's free dim and the
+    right operand is split or partial there, (a) gathers the right one
+    there (on a batch dim, FSDP's weight gather), and on a batch dim (b)
+    keeps it: the left operand is reduced where it is a partial sum and
+    cut locally where the right one's contraction or batch dim is split,
+    then over that mesh dim its free dim's split moves to its contraction
+    dim (an all-to-all; the product a partial sum, reduce-scattered back)
+    where the right one's contraction dim is split, or it is gathered
+    (the product's split then moved back by an all-to-all) where the right
+    one's free dim is. (b) is taken where it sends fewer bytes a device,
+    priced as GSPMD prices a ring over the mesh dim's n devices: n - 1
+    shards for a gather or a reduce-scatter, (n - 1) / n of a shard for an
+    all-to-all; the left operand's move is free where its placements for
+    (b) are among `held` (an earlier product's, kept). The CPU fake group
+    runs an all-to-all as a gather and a chunk (ROADMAP Queue 3), so the
+    dry-run counts (b)'s all-to-alls as gathers. (b) needs an `mm` or
+    `bmm` (no bias to add to a partial sum), plain `Shard`s and a right
+    operand split there, not a partial sum."""
+    _, free, _, batch = _MATMULS[func]
+    contract_l, contract_r = len(left_shape) - 1, len(right_shape) - 2
+
+    def split_r(p):
+        return p.is_shard() and p.dim not in batch
+    pairs = list(enumerate(zip(left_pl, right_pl)))
+    both = [i for i, (pl, pr) in pairs
+            if pl.is_shard() and pl.dim in free
+            and (pr.is_partial() or split_r(pr))]
+    reduce = [i for i, (pl, pr) in pairs if pl.is_partial() and split_r(pr)]
+    # (b)'s left operand: reduced, then cut where the right one's
+    # contraction or batch dim is split and it is whole
+    cut = []
+    for i, (pl, pr) in pairs:
+        pl = Replicate() if i in reduce else pl
+        if pl.is_replicate() and type(pr) is Shard and (
+                pr.dim == contract_r or pr.dim in batch):
+            pl = Shard(contract_l if pr.dim == contract_r else pr.dim)
+        cut.append(pl)
+    open_ = [i for i in both if func in _STATIONARY and i in batch_dims
+             and type(left_pl[i]) is Shard and type(right_pl[i]) is Shard]
+    # where the right operand's contraction dim is split the left one's
+    # free-dim split moves to its contraction dim; else it is gathered
+    moves = {i: right_pl[i].dim == contract_r for i in open_}
+    placed = [Shard(contract_l) if moves.get(i) else
+              Replicate() if i in moves else p for i, p in enumerate(cut)]
+    left = 0 if tuple(placed) in held else _local_bytes(
+        left_shape, cut, sizes, left_itemsize)
+    weight = _local_bytes(right_shape, right_pl, sizes, right_itemsize)
+    out_shape = tuple(left_shape[:-1]) + tuple(right_shape[-1:])
+    # the product's splits (only whether a mesh dim splits it counts)
+    out = _local_bytes(out_shape, [
+        Shard(0) if (pl.is_shard() and pl.dim in free) or (
+            pr.is_shard() and pr.dim != contract_r) else Replicate()
+        for pl, pr in zip(left_pl, right_pl)], sizes, left_itemsize)
+    stationary = [i for i in open_ if (
+        left / sizes[i] + out if moves[i] else left + out / sizes[i])
+        < weight]
+    # a mesh dim that keeps (a) keeps the left operand's split there
+    placed = [p if i in stationary or i not in moves else cut[i]
+              for i, p in enumerate(placed)]
+    gather = [i for i in both if i not in stationary]
+    return Partition(gather, stationary, reduce,
+                     placed if stationary else None)
+
+
+def _keeps_placed(func) -> bool:
+    """Whether a weight-stationary product's placed left operand is kept
+    across DTensor op `func`: a matmul (the next may read it), a view, a
+    cast or a pointwise op, the ops between consecutive projections of one
+    activation (the next weight's cast, the operand's view, an activation
+    of the previous product)."""
+    return (func in _MATMULS or not func._schema.is_mutable and (
+        func.is_view or func in (aten._to_copy.default,
+                                 aten._unsafe_view.default)
+        or torch.Tag.pointwise in func.tags))
 
 
 class TraceBudgetExceeded(RuntimeError):
@@ -152,21 +271,51 @@ def _label(func, fix) -> str:
             "all": f"{func} [all operands replicated]"}[fix[0]]
 
 
+def _replicated(placements, dims: Sequence[int]):
+    """`placements` with those on mesh dims `dims` replicated."""
+    return [Replicate() if i in dims else p for i, p in enumerate(placements)]
+
+
 def _replicate_dims(x, dims: Sequence[int]):
     """`x` (a DTensor) with its placements on mesh dims `dims` replicated
-    (an all-gather for a shard, an all-reduce for a partial sum). `x` is
-    detached first: the mode runs below autograd, which has recorded the
-    op already, and `redistribute`'s autograd Function would otherwise
+    (an all-gather for a shard, an all-reduce for a partial sum)."""
+    return _redistribute(x, _replicated(x.placements, dims))
+
+
+def _redistribute(x, placements):
+    """`x` (a DTensor) redistributed to `placements`. `x` is detached
+    first: the mode runs below autograd, which has recorded the op
+    already, and `redistribute`'s autograd Function would otherwise
     `detach_` an output that requires grad in place (an op that torch
     2.11's DTensor has no rule for)."""
-    pl = list(x.placements)
-    for i in dims:
-        pl[i] = Replicate()
     try:
-        return x.detach().redistribute(x.device_mesh, pl)
+        return x.detach().redistribute(x.device_mesh, placements)
     except RuntimeError:
         with _searching():
-            return x.detach().redistribute(x.device_mesh, pl)
+            return x.detach().redistribute(x.device_mesh, placements)
+
+
+def _identity(x) -> Tuple:
+    """DTensor x's local tensor as storage, version and view, and its
+    placements: equal for two views of one tensor in one layout (matmul's
+    reshapes of one activation)."""
+    loc = x._local_tensor
+    return (loc.untyped_storage()._cdata, loc._version, tuple(loc.shape),
+            loc.stride(), loc.storage_offset(), tuple(x.placements))
+
+
+def _own_storage(x):
+    """DTensor `x` with a local tensor that owns no more storage than it
+    spans. The CPU fake group runs an all-to-all as a gather and a chunk
+    (ROADMAP Queue 3), whose shard is a view that keeps the whole gather
+    alive for as long as the shard lives; an all-to-all's output holds its
+    shard only."""
+    loc = x._local_tensor
+    if loc.untyped_storage().nbytes() <= loc.numel() * loc.element_size():
+        return x
+    return DTensor.from_local(loc.clone(), x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
 
 
 class ReshardPolicy(TorchDispatchMode):
@@ -186,10 +335,12 @@ class ReshardPolicy(TorchDispatchMode):
         self.counters = tuple(counters)
         self.reshards: Counter = Counter()
         self.gathers: Counter = Counter()
+        self.stationary: Counter = Counter()
         self.reduces: Counter = Counter()
         self.dropped: Counter = Counter()
         self.masked: Counter = Counter()
         self.wrapped = 0
+        self._placed: Dict[Tuple, Tuple] = {}
         self._fixes: Dict[Tuple, object] = {}
 
     def record(self) -> Dict:
@@ -199,6 +350,8 @@ class ReshardPolicy(TorchDispatchMode):
                 "shards_dropped": dict(sorted(self.dropped.items())),
                 "policy": {"matmul_right_replicated": dict(
                                sorted(self.gathers.items())),
+                           "matmul_weight_stationary": dict(
+                               sorted(self.stationary.items())),
                            "matmul_left_reduced": dict(
                                sorted(self.reduces.items())),
                            "masked_partials_reduced": dict(
@@ -214,11 +367,14 @@ class ReshardPolicy(TorchDispatchMode):
                 f"{func} ({_where()})")
         if not any(issubclass(t, DTensor) for t in types):
             return func(*args, **kwargs)
+        if not _keeps_placed(func):
+            self._placed.clear()
         flat, _ = tree_flatten((args, kwargs))
         mesh = next(a.device_mesh for a in flat if isinstance(a, DTensor))
         args, kwargs = tree_map(lambda x: self._wrap(x, mesh), (args, kwargs))
+        post = None
         if func in _MATMULS:
-            args = self._keep_left(func, args)
+            args, post = self._keep_left(func, args)
         key = (func,) + tuple(
             (tuple(a.shape), tuple(a.placements)) if isinstance(a, DTensor)
             else None for a in tree_flatten((args, kwargs))[0])
@@ -240,6 +396,8 @@ class ReshardPolicy(TorchDispatchMode):
             out = self._apply(func, args, kwargs, fix)
         if fix is not None:
             self.reshards[_label(func, fix)] += 1
+        if post is not None:
+            out = post(out)
         if func in _MATMULS:
             self._note_dropped(func, args, out)
         return self._reduce_masked(func, out)
@@ -258,13 +416,13 @@ class ReshardPolicy(TorchDispatchMode):
     def snapshot(self):
         """The policy's own counts (`sharding.loops` scales them)."""
         return (Counter(self.reshards), Counter(self.gathers),
-                Counter(self.reduces), Counter(self.dropped),
-                Counter(self.masked), self.wrapped)
+                Counter(self.stationary), Counter(self.reduces),
+                Counter(self.dropped), Counter(self.masked), self.wrapped)
 
     def restore(self, snap):
-        (self.reshards, self.gathers, self.reduces, self.dropped,
-         self.masked) = (Counter(c) for c in snap[:5])
-        self.wrapped = snap[5]
+        (self.reshards, self.gathers, self.stationary, self.reduces,
+         self.dropped, self.masked) = (Counter(c) for c in snap[:6])
+        self.wrapped = snap[6]
 
     def _snapshot(self):
         return [c.snapshot() for c in self.counters]
@@ -294,28 +452,68 @@ class ReshardPolicy(TorchDispatchMode):
         return x
 
     def _keep_left(self, func, args):
-        li, free, ri, batch = _MATMULS[func]
+        """`args` with the operands placed by `matmul_partition`, and the
+        function that places the product (None where nothing does)."""
+        li, _, ri, _ = _MATMULS[func]
         left, right = args[li], args[ri]
         if not (isinstance(left, DTensor) and isinstance(right, DTensor)):
-            return args
-        pairs = list(enumerate(zip(left.placements, right.placements)))
-        split_r = lambda pr: pr.is_shard() and pr.dim not in batch  # noqa
-        gather = [i for i, (pl, pr) in pairs
-                  if pl.is_shard() and pl.dim in free
-                  and (pr.is_partial() or split_r(pr))]
-        reduce = [i for i, (pl, pr) in pairs
-                  if pl.is_partial() and split_r(pr)]
-        args = list(args)
+            return args, None
+        ident = _identity(left)
+        part = matmul_partition(
+            func, left.shape, left.placements, right.shape, right.placements,
+            left.device_mesh.shape, left.element_size(),
+            right.element_size(), self.dp_dims,
+            held=[steps[-1] for key, steps in self._placed
+                  if key == ident])
+        args, post = list(args), None
         # a redistribution DTensor cannot run (an uneven `_StridedShard`)
         # leaves the choice to DTensor
         with contextlib.suppress(RuntimeError):
-            if gather:
-                args[ri] = _replicate_dims(right, gather)
-                self.gathers[str(func)] += 1
-            if reduce:
-                args[li] = _replicate_dims(left, reduce)
+            steps = ([_replicated(left.placements, part.reduce)]
+                     if part.reduce else []) + (
+                [part.left] if part.stationary else [])
+            if steps:
+                args[li] = self._place_left(left, ident, steps,
+                                            bool(part.stationary))
+            if part.reduce:
                 self.reduces[str(func)] += 1
-        return tuple(args)
+            if part.stationary:
+                back = {i: left.placements[i] for i in part.stationary}
+
+                def post(out):
+                    return _own_storage(_redistribute(out, [
+                        back.get(i, p) for i, p in enumerate(out.placements)]))
+                self.stationary[str(func)] += 1
+            if part.gather:
+                args[ri] = _replicate_dims(right, part.gather)
+                self.gathers[str(func)] += 1
+        return tuple(args), post
+
+    def _place_left(self, left, ident, steps, share: bool):
+        """`left` (of `_identity` `ident`) redistributed to each of
+        `steps` (placement lists) in turn. For a weight-stationary product
+        (`share`) the result is kept for the next matmul that reads the
+        same tensor in the same layout (q, k and v read one x, gate and up
+        one h): it is moved once, as XLA's common-subexpression pass moves
+        it once for every dot. It is dropped at the first op that
+        `_keeps_placed` does not keep it across, so it lives no longer
+        than those products do."""
+        from torch.multiprocessing.reductions import StorageWeakRef
+        # an entry lives while its source's storage does (so its address
+        # is not reused while the key lives)
+        self._placed = {k: v for k, v in self._placed.items()
+                        if not v[0].expired()}
+        source = StorageWeakRef(left._local_tensor.untyped_storage())
+        key = (ident, tuple(tuple(pl) for pl in steps))
+        if share and key in self._placed:
+            return self._placed[key][1]
+        placed = left
+        for pl in steps:
+            placed = _redistribute(placed, pl)
+        if share:
+            placed = _own_storage(placed)
+            self._placed[key] = (source, placed)
+        return placed
 
     # ------------------------------------------------------------------
     def _apply(self, func, args, kwargs, fix):

@@ -15,7 +15,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.common.pytree import normal_init
-from repro_torch.sharding.context import gather_last, logsumexp_last
+from repro_torch.sharding.context import gather_last, logsumexp_last, \
+    lookup_rows
 
 
 # ----------------------------------------------------------------------
@@ -73,7 +74,7 @@ def init_embedding(generator, vocab: int, d: int, *, device=None):
 
 
 def embed(p, tokens, dtype=torch.float32):
-    return p["table"].to(dtype)[tokens]
+    return lookup_rows(p["table"].to(dtype), tokens)
 
 
 def next_token_nll(logits, labels):

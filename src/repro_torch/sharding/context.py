@@ -30,9 +30,15 @@ an einsum whose other operand keeps a head split. `write_slot` writes the
 new token into each device's own T shard (GSPMD's masked
 dynamic-update-slice) and `on_seq_shards` runs decode attention on each
 device's T slice, its softmax combined by all-reduces.
+
+DTensor's index rule gathers the embedding table's vocab split on every
+device. Where that moves more bytes than the rows looked up (a decode
+step's few tokens), `lookup_rows` looks each id up on the device's own
+vocab rows and all-reduces the masked rows over the split.
 """
 from __future__ import annotations
 
+import math
 from contextlib import contextmanager
 from contextvars import ContextVar
 from typing import Optional
@@ -283,6 +289,92 @@ def _summed(x, y):
     return y.redistribute(y.device_mesh, [
         Replicate() if p == last else q
         for p, q in zip(x.placements, y.placements)])
+
+
+def lookup_local_rows(local: torch.Tensor, ids: torch.Tensor,
+                      start: int) -> torch.Tensor:
+    """The rows of `ids` that fall in `local`, a table's rows [start, start
+    + local.shape[0]), and zeros for the others: each device's part of a
+    vocab-parallel lookup, which sums over the row slices to
+    `table[ids]`. The ids outside the slice are clamped to its first row and
+    masked, so every slice runs the same fixed-shape ops."""
+    inside = (ids >= start) & (ids < start + local.shape[0])
+    rows = local[torch.where(inside, ids - start, 0)]
+    return torch.where(inside[..., None], rows, torch.zeros_like(rows))
+
+
+def masked_lookup_cheaper(table_shape, table_pl, ids_shape, ids_pl, sizes,
+                          itemsize: int) -> bool:
+    """Whether `lookup_rows` looks up on each device's rows of a (V, d)
+    table placed as `table_pl` (ids (...) placed as `ids_pl`, a mesh of
+    `sizes`), from nothing but those: where it sends fewer bytes a device
+    than DTensor's index rule, which gathers the table's vocab split (a
+    ring of n devices sends n - 1 shards). The masked lookup all-reduces
+    its output over that split instead (2 (n - 1) / n of it, a device's
+    ids times its d shard). Both gather the ids over the mesh dims that
+    split the table."""
+    vocab = math.prod(k for p, k in zip(table_pl, sizes) if p.is_shard(0))
+    if vocab == 1:
+        return False
+    table = math.prod(table_shape) * itemsize / math.prod(
+        k for p, k in zip(table_pl, sizes) if p.is_shard())
+    ids = math.prod(ids_shape) / math.prod(
+        k for p, q, k in zip(ids_pl, table_pl, sizes)
+        if p.is_shard() and q.is_replicate())
+    out = ids * table_shape[-1] * itemsize / math.prod(
+        k for p, k in zip(table_pl, sizes) if p.is_shard(1))
+    return 2 * out * (vocab - 1) / vocab < table * (vocab - 1)
+
+
+def lookup_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """`table[tokens]` (the embedding lookup of a (V, d) table). Under an
+    armed activation sharding, on DTensors, where `masked_lookup_cheaper`:
+    each device looks the ids up on its own vocab rows of the table
+    (`lookup_local_rows`), its d shard as it is, and the partial sums are
+    all-reduced over the vocab split, as `_summed` does for the loss: the
+    ids are gathered over the mesh dims that split the table (ints, a
+    device's batch), never the table. The rows come back placed as the
+    token activations (`constrain`), where every model pins them or its
+    first layer reads them. DTensor's index rule gathers the table's vocab
+    split on every device. Elsewhere the indexed lookup."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if _ACT_SHARDING.get() is None or not all(
+            isinstance(t, DTensor) for t in (table, tokens)) or \
+            not masked_lookup_cheaper(
+                table.shape, table.placements, tokens.shape,
+                tokens.placements, table.device_mesh.shape,
+                table.element_size()):
+        return table[tokens]
+    mesh, tpl = table.device_mesh, table.placements
+    ids = tokens.redistribute(mesh, [
+        Replicate() if not q.is_replicate() else p
+        for p, q in zip(tokens.placements, tpl)])
+    # the ids' own shard, not a view of it: a view would put an argument's
+    # storage among the step's temporaries in the dry-run's memory count
+    rows = lookup_local_rows(table.to_local(), ids._local_tensor,
+                             _first_row(table))
+    part = [Partial() if q.is_shard(0) else
+            Shard(ids.ndim) if q.is_shard(1) else p
+            for p, q in zip(ids.placements, tpl)]
+    out = _from_local(rows, mesh, part, tuple(ids.shape) + table.shape[1:])
+    out = out.redistribute(mesh, [Replicate() if q.is_shard(0) else p
+                                  for p, q in zip(part, tpl)])
+    return constrain(out)
+
+
+def _first_row(x) -> int:
+    """The global index of DTensor x's first row on this device, x's dim 0
+    split by `Shard(0)`s in mesh-dim order (`torch.chunk`'s rows a shard),
+    from the mesh coordinate: `_shard_start` makes an index tensor of the
+    shard's rows on the host."""
+    start, size = 0, x.shape[0]
+    for p, c, n in zip(x.placements, x.device_mesh.get_coordinate(),
+                       x.device_mesh.shape):
+        if p.is_shard(0):
+            chunk = -(-size // n)
+            start += min(c * chunk, size)
+            size = max(0, min(chunk, size - c * chunk))
+    return start
 
 
 def constrain_moe(x: torch.Tensor) -> torch.Tensor:
